@@ -7,30 +7,48 @@ that fails, and without a card. Phases, each printing one line:
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` names it;
 2. build: compiles ``yolo_ms_tpu_torch/csrc/select.cu`` into the ignored
-   ``yolo_ms_tpu_torch/build/`` directory;
-3. select kernel against ``select_plain`` on the card, at the serving shapes
-   (batch 32; HW 6400 / 1600 / 400; nc 80 and 3; f32 and bf16; split pair,
-   unsplit map and NCHW permute view) plus the tie and +100 / -60 cases:
-   ``mx`` and ``cid`` exactly equal, ``ltrb`` within 1e-5 (f32) / 1e-4 (bf16);
-   then the card-only tests of ``tests/test_torch_cuda.py`` in a child pytest;
+   ``yolo_ms_tpu_torch/build/`` directory and prints its registers and its
+   launch plan (anchors per tile, ring stages, shared memory, CTAs per SM);
+3. the one-launch ``select_scales`` against ``select_scales_plain`` on the
+   card, at the serving scales (batch 32; HW 6400 / 1600 / 400) and at ragged
+   and misaligned ones (HW 400 / 49 / 25); nc 80 and 3; f32 and bf16; split
+   pair, unsplit map and NCHW permute view; plus the tie and +100 / -60
+   cases: ``mx`` and ``cid`` exactly equal, ``ltrb`` within 1e-5 (f32) /
+   1e-4 (bf16); each layout's copy route and its time per batch (L2
+   flushed); then the card-only tests of ``tests/test_torch_cuda.py`` in a
+   child pytest;
 4. the two trained golden fixtures through ``Predictor(device="cuda")`` in
    f32, matched against their checked-in detections, and the card's raw
    maps on the same image held against the CPU's (atol 1e-4);
 5. full-width serving: yolo-ms-xs and yolov8-n, nc=80, 640x640, bf16,
    batch 32, weights from seeded numpy through the converter, BN-folded;
-   ``select.launches`` must rise by 3 per batch; outputs are checked, the
+   ``select.launches`` must rise by 1 per batch; outputs are checked, the
    kernel tail is held against the plain tail on the same f32 maps, and the
    batch time (host clock) and the copy, forward, post-process and kernel
-   times (CUDA events) are measured as medians; each kernel time stands
-   beside its bound (bytes over the memory rate against operations over
-   the f32 rate of the card that ``nvidia-smi`` names).
+   times (CUDA events) are measured as medians. The kernel is timed as one
+   launch per batch with L2 flushed (by a write, and by a read) and
+   unflushed (as the main path finds the maps after the head convs), each
+   behind a spin kernel so that the host's enqueue time is not counted, and
+   on each scale alone; the host's time to enqueue one call is measured
+   apart. Each time stands beside its bound (bytes over the memory rate
+   against operations over the f32 rate of the card that ``nvidia-smi``
+   names).
 
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --parent DIR
+
+instead times the select kernel of another checkout of the repo (``DIR``,
+for example the parent commit unpacked with ``git archive``) against this
+one on the same inputs, in turns (parent, this, this, parent), after
+phases 1 and 2.
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -49,7 +67,12 @@ from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
-from yolo_ms_tpu_torch.ops.kernels.select import select, select_plain
+from yolo_ms_tpu_torch.ops.kernels.select import (
+    select,
+    select_plain,
+    select_scales,
+    select_scales_plain,
+)
 from yolo_ms_tpu_torch.ops.nms import nms_fixed
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.utils.convert import (
@@ -67,6 +90,10 @@ GOLDENS = (
 SERVE_ARCHS = ("yolo-ms-xs", "yolov8-n")
 BATCH, IMG, NC, REG_MAX = 32, 640, 80, 16
 SERVE_BATCHES = 8  # batches in the counted main-path run, per model
+LAYOUTS = ("split", "unsplit", "nchw")
+# the serving scales at 640 px; a ragged set (HW 400 is not a multiple of the
+# tile; the rows of HW 49 and 25 are not 16-byte aligned)
+SCALE_SETS = (("serving", (80, 40, 20)), ("ragged", (20, 7, 5)))
 # Device memory rate (bytes/s) and f32 rate outside the tensor cores
 # (operations/s) by card name, from NVIDIA's data sheets (dense, full power).
 PEAK_RATES = (
@@ -89,16 +116,20 @@ def peak_rates(name: str) -> tuple[float, float]:
     raise RuntimeError(f"no peak rates on record for {name!r}")
 
 
-def select_bound(box: torch.Tensor, cls: torch.Tensor, name: str) -> tuple[float, float]:
-    """The two least times (ms) the card could take for one ``select`` call:
-    each input element read once and 24 B written per anchor (mx, cid,
-    ltrb) over the memory rate, and the f32 operations (one compare per
-    class logit; a max, subtract, clamp, exp, multiply and two adds per box
-    logit) over the f32 rate. The bound is the larger."""
+def select_bound(pairs, name: str) -> tuple[float, float]:
+    """The two least times (ms) the card could take for one ``select_scales``
+    call over (box, cls) pairs: each input element read once and 24 B
+    written per anchor (mx, cid, ltrb) over the memory rate, and the f32
+    operations (one compare per class logit; a max, subtract, clamp, exp,
+    multiply and two adds per box logit) over the f32 rate. The bound is the
+    larger."""
     mem_rate, f32_rate = peak_rates(name)
-    n_anchor = box.shape[0] * box.shape[1]
-    nbytes = n_anchor * (box.shape[2] * box.element_size() + cls.shape[2] * cls.element_size() + 24)
-    ops = n_anchor * (cls.shape[2] + 7 * box.shape[2])
+    nbytes = ops = 0
+    for box, cls in pairs:
+        n_anchor = box.shape[0] * box.shape[1]
+        nbytes += n_anchor * (
+            box.shape[2] * box.element_size() + cls.shape[2] * cls.element_size() + 24)
+        ops += n_anchor * (cls.shape[2] + 7 * box.shape[2])
     return nbytes / mem_rate * 1e3, ops / f32_rate * 1e3
 
 
@@ -106,14 +137,24 @@ def bound_of(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
+def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None, clean: bool = False,
+            cover: bool = False) -> float:
     """Median device time of one call of ``fn`` (CUDA events around each
-    call; ``flush`` is overwritten before each so inputs come from HBM)."""
+    call). ``flush`` is overwritten before each call so inputs come from HBM;
+    with ``clean`` it is read instead, which leaves the L2 holding clean
+    lines, so the call does not also write back up to 50 MB of dirty ones.
+    ``cover`` first queues a spin kernel, so that the host's time to enqueue
+    ``fn`` is not counted as device time."""
     fn()
     pairs = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            if clean:
+                flush.view(torch.int32).sum()
+            else:
+                flush.zero_()
+        if cover:
+            torch.cuda._sleep(400_000)  # about 0.2 ms of cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -122,6 +163,19 @@ def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time (us) to enqueue one call of ``fn``."""
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+        if i % 20 == 19:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -144,9 +198,11 @@ def _layout_views(gen, b, h, w, nc, dtype, layout):
     return flat[..., :nb], flat[..., nb:]
 
 
-def compare_select(box, cls, dtype, label):
-    mx, cid, ltrb = select(box, cls, REG_MAX)
-    pmx, pcid, pltrb = select_plain(box, cls, REG_MAX)
+def compare_select(pairs, dtype, label):
+    """``select_scales`` against ``select_scales_plain`` on the same maps."""
+    mx, cid, ltrb = select_scales(pairs, REG_MAX)
+    routes = list(select_scales.last_routes)
+    pmx, pcid, pltrb = select_scales_plain(pairs, REG_MAX)
     torch.cuda.synchronize()
     if not torch.equal(mx, pmx):
         raise AssertionError(f"{label}: mx differs, max err {(mx - pmx).abs().max().item()}")
@@ -155,34 +211,42 @@ def compare_select(box, cls, dtype, label):
     err = (ltrb - pltrb).abs().max().item()
     if not (err <= LTRB_ATOL[dtype]) or not torch.isfinite(ltrb).all():
         raise AssertionError(f"{label}: ltrb max err {err} > {LTRB_ATOL[dtype]}")
-    return err, mx, cid, ltrb
+    return err, routes, (mx, cid, ltrb)
 
 
-def phase_kernel_vs_plain() -> float:
+def _route_names(routes) -> str:
+    return " ".join(f"{b}/{c}" for b, c in routes)
+
+
+def phase_kernel_vs_plain(flush: torch.Tensor, name: str) -> float:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for hw_side in (80, 40, 20):
-            for nc in (NC, 3):
-                errs = []
-                for layout in ("split", "unsplit", "nchw"):
-                    box, cls = _layout_views(gen, BATCH, hw_side, hw_side, nc, dtype, layout)
-                    label = f"{dtype} hw={hw_side * hw_side} nc={nc} {layout}"
-                    errs.append(compare_select(box, cls, dtype, label)[0])
-                worst = max(worst, *errs)
-                print(
-                    f"phase 3 select {str(dtype)[6:]} B={BATCH} HW={hw_side * hw_side} "
-                    f"nc={nc}: mx, cid equal; ltrb max err split/unsplit/nchw "
-                    f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}"
-                )
+        for nc in (NC, 3):
+            for set_name, sides in SCALE_SETS:
+                parts = []
+                for layout in LAYOUTS:
+                    pairs = [_layout_views(gen, BATCH, s, s, nc, dtype, layout) for s in sides]
+                    label = f"{dtype} {set_name} nc={nc} {layout}"
+                    err, routes, _ = compare_select(pairs, dtype, label)
+                    worst = max(worst, err)
+                    part = f"{layout} err {err:.3e} route {_route_names(routes)}"
+                    if set_name == "serving" and nc == NC:
+                        ms = cuda_ms(lambda: select_scales(pairs, REG_MAX), 20, flush, cover=True)
+                        bound = bound_of(*select_bound(pairs, name))[0]
+                        part += f" {ms * 1e3:.1f} us ({bound / ms * 100:.0f} % of bound)"
+                    parts.append(part)
+                hws = "/".join(str(s * s) for s in sides)
+                print(f"phase 3 select_scales {str(dtype)[6:]} B={BATCH} HW={hws} nc={nc}: "
+                      f"mx, cid equal; " + "; ".join(parts))
     # ties and extremes: all-equal class logits -> id 0; side 0 peaked at
     # bin 3 (+100) -> 3.0; side 1 trails by 100 > 60 -> clamped, uniform 7.5
     for dtype in (torch.float32, torch.bfloat16):
         flat = torch.zeros(1, 16, 4 * REG_MAX + 8, dtype=dtype, device="cuda")
         flat[0, 0, 3] = 100.0
-        err, _, cid, ltrb = compare_select(
-            flat[..., : 4 * REG_MAX], flat[..., 4 * REG_MAX :], dtype, f"{dtype} extremes"
+        err, _, (_, cid, ltrb) = compare_select(
+            [(flat[..., : 4 * REG_MAX], flat[..., 4 * REG_MAX :])], dtype, f"{dtype} extremes"
         )
         worst = max(worst, err)
         got = ltrb[0, 0].tolist()
@@ -356,9 +420,9 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         check_outputs(out, arch)
     launches, sweeps = select.launches, nms_fixed.sweeps
-    if launches != 3 * SERVE_BATCHES:
+    if launches != SERVE_BATCHES:
         raise AssertionError(f"{arch}: select launched {launches} times in "
-                             f"{SERVE_BATCHES} batches, expected {3 * SERVE_BATCHES}")
+                             f"{SERVE_BATCHES} batches, expected {SERVE_BATCHES}")
 
     # the kernel tail against the plain tail, on the same f32 maps
     x_u8 = torch.from_numpy(batches[0]).cuda()
@@ -384,27 +448,38 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
         post_ms = cuda_ms(lambda: fused_postprocess(maps, NC, **kw), 5)
         infer_ms = cuda_ms(lambda: predictor.infer(x_u8), 5)
 
-        # the select kernel per scale against its bound and the plain version
+        # the select kernel, one launch per batch and each scale alone,
+        # against its bound and the plain version
         name = torch.cuda.get_device_name(0)
+        pairs = [(b.flatten(1, 2), c.flatten(1, 2)) for b, c in maps]
+        err, routes, _ = compare_select(pairs, torch.bfloat16, f"{arch} serving maps")
+        bytes_ms, ops_ms = select_bound(pairs, name)
+        one = lambda: select_scales(pairs, REG_MAX)  # noqa: E731
+        batch_sel = {
+            "ms": cuda_ms(one, 20, flush, cover=True),
+            "clean_ms": cuda_ms(one, 20, flush, clean=True, cover=True),
+            "warm_ms": cuda_ms(one, 20, cover=True),
+            "plain_ms": cuda_ms(lambda: select_scales_plain(pairs, REG_MAX), 20, flush, cover=True),
+            "host_us": host_us(one),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "err": err, "routes": routes,
+        }
         scales = []
-        for (b, c) in maps:
-            box, cls = b.flatten(1, 2), c.flatten(1, 2)
-            err = compare_select(box, cls, torch.bfloat16, f"{arch} serving map")[0]
-            bytes_ms, ops_ms = select_bound(box, cls, name)
+        for box, cls in pairs:
+            bytes_ms, ops_ms = select_bound([(box, cls)], name)
             scales.append({
                 "hw": box.shape[1],
-                "ms": cuda_ms(lambda: select(box, cls, REG_MAX), 20, flush),
-                "plain_ms": cuda_ms(lambda: select_plain(box, cls, REG_MAX), 20, flush),
+                "ms": cuda_ms(lambda: select(box, cls, REG_MAX), 20, flush, cover=True),
+                "plain_ms": cuda_ms(lambda: select_plain(box, cls, REG_MAX), 20, flush, cover=True),
                 "bytes_ms": bytes_ms,
                 "ops_ms": ops_ms,
-                "err": err,
             })
     h2d_ms = cuda_ms(lambda: torch.from_numpy(batches[0]).to("cuda"), 5)
     med = statistics.median(host_ms)
     return {
         "arch": arch, "launches": launches, "sweeps": sweeps, "host_ms": med,
         "img_s": BATCH / med * 1e3, "fwd_ms": fwd_ms, "post_ms": post_ms,
-        "infer_ms": infer_ms, "h2d_ms": h2d_ms, "scales": scales, "tail_err": tail_err,
+        "infer_ms": infer_ms, "h2d_ms": h2d_ms, "select": batch_sel, "scales": scales,
+        "tail_err": tail_err,
     }
 
 
@@ -424,7 +499,67 @@ def check_outputs(out: dict, arch: str) -> None:
         raise AssertionError(f"{arch}: scores or classes out of range")
 
 
+def _load_select_of(checkout: str):
+    """The select module of another checkout; it builds that checkout's
+    ``csrc/select.cu`` into that checkout's ``build/``."""
+    path = os.path.join(checkout, "yolo_ms_tpu_torch", "ops", "kernels", "select.py")
+    spec = importlib.util.spec_from_file_location("parent_select", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_parent_ab(parent: str, flush: torch.Tensor, name: str) -> None:
+    """The parent checkout's select kernel against this one at the serving
+    shapes, on the same inputs, timed in turns (parent, this, this, parent;
+    CUDA events, L2 flushed, median of 20 each). The parent is called once
+    per scale, as its ``select`` takes one scale."""
+    old = _load_select_of(parent)
+    info = old.build()
+    print(f"ab parent build: {info['seconds']:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    sides = dict(SCALE_SETS)["serving"]
+    for dtype in (torch.bfloat16, torch.float32):
+        for layout in LAYOUTS:
+            pairs = [_layout_views(gen, BATCH, s, s, NC, dtype, layout) for s in sides]
+            want = select_scales(pairs, REG_MAX)
+            got = [torch.cat(p, dim=1) for p in zip(*(old.select(b, c, REG_MAX) for b, c in pairs))]
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"ab {dtype} {layout}: parent and this disagree on mx/cid")
+            ltrb_err = (got[2] - want[2]).abs().max().item()
+            fns = {
+                "parent": lambda: [old.select(b, c, REG_MAX) for b, c in pairs],
+                "parent+cat": lambda: [torch.cat(p, dim=1) for p in zip(
+                    *(old.select(b, c, REG_MAX) for b, c in pairs))],
+                "this": lambda: select_scales(pairs, REG_MAX),
+            }
+            times = {k: [] for k in fns}
+            for who in ("parent", "this", "this", "parent"):
+                for key in fns:
+                    if key.startswith(who):
+                        times[key].append(cuda_ms(fns[key], 20, flush, cover=True))
+            bound = bound_of(*select_bound(pairs, name))[0]
+            print(f"ab select {str(dtype)[6:]} {layout} B={BATCH} HW=6400/1600/400 "
+                  f"(bound {bound * 1e3:.1f} us, ltrb diff {ltrb_err:.1e}): " + "; ".join(
+                      f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
+                      for k, v in times.items()))
+            if dtype == torch.bfloat16 and layout == "nchw":
+                for box, cls in pairs:
+                    per = {"parent": [], "this": []}
+                    for who in ("parent", "this", "this", "parent"):
+                        fn = old.select if who == "parent" else select
+                        per[who].append(cuda_ms(lambda: fn(box, cls, REG_MAX), 20, flush,
+                                                cover=True))
+                    print(f"ab select bf16 nchw HW={box.shape[1]} alone: " + "; ".join(
+                        f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
+                        for k, v in per.items()))
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="another checkout whose select kernel to time against")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -437,15 +572,27 @@ def main() -> int:
 
     info = select_mod.build()
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    print(f"phase 2 build select.cu: {info['seconds']:.2f} s; {'; '.join(regs)}")
+    plans = "; ".join(
+        "{} nc={}: {tile} anchors per tile, {stages} stages, {smem_bytes} B shared per CTA, "
+        "{ctas_per_sm} CTAs per SM on {sms} SMs".format(str(dt)[6:], nc, **select_mod.plan(dt, nc))
+        for dt in (torch.bfloat16, torch.float32) for nc in (NC, 3)
+    )
+    print(f"phase 2 build select.cu: {info['seconds']:.2f} s; {'; '.join(regs)}; plan: {plans}")
 
-    worst = phase_kernel_vs_plain()
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    if args.parent:
+        phase_parent_ab(args.parent, flush, name)
+        print(smi)
+        return 0
+
+    worst = phase_kernel_vs_plain(flush, name)
     phase_cuda_tests()
     phase_goldens()
 
-    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     runs = [serve_model(arch, flush) for arch in SERVE_ARCHS]
     for r in runs:
+        sel = r["select"]
+        bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
         per_scale = ", ".join(
             "HW {}: {:.1f} us (bound {:.1f} us by {}, plain {:.1f} us)".format(
                 s["hw"], s["ms"] * 1e3, bound_of(s["bytes_ms"], s["ops_ms"])[0] * 1e3,
@@ -461,12 +608,20 @@ def main() -> int:
             f"NMS sweeps {r['sweeps']} ({r['sweeps'] / SERVE_BATCHES:.1f}/batch); "
             f"kernel-vs-plain tail box err {r['tail_err']:.3e}"
         )
-        print(f"phase 5 select {r['arch']}: {per_scale}")
+        print(
+            f"phase 5 select {r['arch']}: one launch per batch {sel['ms'] * 1e3:.1f} us with L2 "
+            f"flushed by a write, {sel['clean_ms'] * 1e3:.1f} us flushed by a read, "
+            f"{sel['warm_ms'] * 1e3:.1f} us unflushed (bound {bound_ms * 1e3:.1f} us by "
+            f"{bound_by}, {bound_ms / sel['ms'] * 100:.0f} / {bound_ms / sel['clean_ms'] * 100:.0f}"
+            f" / {bound_ms / sel['warm_ms'] * 100:.0f} % of it; plain "
+            f"{sel['plain_ms'] * 1e3:.1f} us; host {sel['host_us']:.1f} us to enqueue one call; "
+            f"routes {_route_names(sel['routes'])}); each scale alone: {per_scale}"
+        )
 
-    # one batch of the flagship: the three scales' launches summed
-    sc = runs[0]["scales"]
-    bound_ms, bound_by = bound_of(sum(s["bytes_ms"] for s in sc), sum(s["ops_ms"] for s in sc))
-    worst = max([worst] + [s["err"] for r in runs for s in r["scales"]])
+    # one batch of the flagship, one launch
+    sel = runs[0]["select"]
+    bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
+    worst = max([worst] + [r["select"]["err"] for r in runs])
     kernels = [{
         "name": "select",
         "route": "cuda",
@@ -474,8 +629,8 @@ def main() -> int:
         "replaces": "yolo_ms_tpu/ops/pallas/select.py:56",
         "launches": sum(r["launches"] for r in runs),
         "max_abs_err": worst,
-        "ms": sum(s["ms"] for s in sc),
-        "plain_ms": sum(s["plain_ms"] for s in sc),
+        "ms": sel["ms"],
+        "plain_ms": sel["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,

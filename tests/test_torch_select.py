@@ -4,9 +4,11 @@ mode), on the CPU, where the wrapper runs its plain torch version.
 Cases of tests/test_pallas_select.py: random [2, 400, 144] maps in f32 and
 bf16 (mx rtol 1e-6, cid equal, ltrb rtol/atol 1e-5), all-equal class logits
 (id 0) and a +100 bin (3.0, finite); the inputs fed as a split pair, as
-slices of an unsplit map, and as a non-contiguous NCHW permute view. The
-CUDA kernel itself is held against this plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+slices of an unsplit map, and as a non-contiguous NCHW permute view; and
+``select_scales`` over three scales (HW 64 / 16 / 4, nc 80 and 3) against
+the JAX kernel's outputs per scale, concatenated. The CUDA kernel itself is
+held against this plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import jax
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from yolo_ms_tpu.ops.pallas.select import select_scale
-from yolo_ms_tpu_torch.ops.kernels.select import select, select_plain
+from yolo_ms_tpu_torch.ops.kernels.select import select, select_plain, select_scales
 
 NC, REG_MAX = 80, 16
 NB = 4 * REG_MAX
@@ -58,6 +60,48 @@ def test_select_matches_pallas_kernel(dtype, layout):
     np.testing.assert_allclose(mx.numpy(), want_mx, rtol=1e-6)
     np.testing.assert_array_equal(cid.numpy(), want_cid)
     np.testing.assert_allclose(ltrb.numpy(), want_ltrb, rtol=1e-5, atol=1e-5)
+
+
+SCALE_SIDES = [(8, 8), (4, 4), (2, 2)]  # HW 64 / 16 / 4
+
+
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nc", [NC, 3])
+def test_select_scales_matches_concatenated_pallas_kernel(nc, dtype, layout):
+    """All scales in one call equal the JAX kernel per scale, concatenated."""
+    rng = np.random.default_rng(7)
+    pairs, want = [], []
+    for h, w in SCALE_SIDES:
+        x = (rng.standard_normal((2, h * w, NB + nc)) * 2.0).astype(np.float32)
+        if dtype == "bfloat16":
+            x = _bf16_exact(x)
+        want.append(select_scale(jnp.asarray(x, getattr(jnp, dtype)), nc, REG_MAX, interpret=True))
+        flat = torch.from_numpy(x).to(getattr(torch, dtype))
+        pairs.append(_views(flat, layout, h, w))
+    want_mx, want_cid, want_ltrb = (
+        np.asarray(jnp.concatenate(parts, axis=1)) for parts in zip(*want)
+    )
+    mx, cid, ltrb = select_scales(pairs, REG_MAX)
+    assert mx.dtype == torch.float32 and cid.dtype == torch.int32
+    assert ltrb.dtype == torch.float32 and ltrb.shape == (2, 84, 4)
+    np.testing.assert_allclose(mx.numpy(), want_mx, rtol=1e-6)
+    np.testing.assert_array_equal(cid.numpy(), want_cid)
+    np.testing.assert_allclose(ltrb.numpy(), want_ltrb, rtol=1e-5, atol=1e-5)
+
+
+def test_select_scales_rejects_mismatched_scales():
+    box, cls = torch.zeros(2, 16, NB), torch.zeros(2, 16, NC)
+    with pytest.raises(ValueError, match="batch or classes"):
+        select_scales([(box, cls), (box[:1, :4], cls[:1, :4])], REG_MAX)  # B differs
+    with pytest.raises(ValueError, match="batch or classes"):
+        select_scales([(box, cls), (box[:, :4], cls[:, :4, :3])], REG_MAX)  # nc differs
+    with pytest.raises(TypeError):
+        select_scales([(box, cls), (box[:, :4].bfloat16(), cls[:, :4].bfloat16())], REG_MAX)
+    with pytest.raises(ValueError, match="scales"):
+        select_scales([], REG_MAX)
+    with pytest.raises(ValueError, match="scales"):
+        select_scales([(box, cls)] * 5, REG_MAX)
 
 
 def test_select_ties_and_extremes():

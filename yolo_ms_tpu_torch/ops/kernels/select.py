@@ -1,19 +1,24 @@
 """Per-anchor selection: the hand-written CUDA kernel and its plain version.
 
-``select(box, cls, reg_max)`` maps one scale's box logits [B, HW, 4*reg_max]
-and class logits [B, HW, nc] (f32 or bf16, any strides) to
+``select_scales(pairs, reg_max)`` maps the per-scale box logits
+[B, HW_i, 4*reg_max] and class logits [B, HW_i, nc] (f32 or bf16, one dtype,
+any strides with an anchor or a channel stride of 1) to the concatenation
+over scales, A = sum HW_i:
 
-    mx   [B, HW]    f32   max class logit
-    cid  [B, HW]    i32   first-index argmax class id
-    ltrb [B, HW, 4] f32   DFL expectation l, t, r, b
+    mx   [B, A]    f32   max class logit
+    cid  [B, A]    i32   first-index argmax class id
+    ltrb [B, A, 4] f32   DFL expectation l, t, r, b
+
+``select(box, cls, reg_max)`` is the one-scale call of the same kernel.
 
 It replaces the TPU Pallas kernel ``yolo_ms_tpu/ops/pallas/select.py``
-(``_select_kernel`` via ``select_scale``). On a CUDA tensor it launches
-``csrc/select.cu`` (built with nvcc for sm_90a at first use into the
-package's ``build/`` directory and loaded with ctypes) or raises; on a CPU
-tensor it runs ``select_plain``. ``select.launches`` counts kernel
-launches. The TPU kernel's limits (HW a multiple of 16, nc <= 255, the VMEM
-block budget) do not apply.
+(``_select_kernel`` via ``select_scale``). On CUDA tensors it launches
+``csrc/select.cu`` once for all scales (built with nvcc for sm_90a at first
+use into the package's ``build/`` directory and loaded with ctypes) or
+raises; on CPU tensors it runs ``select_scales_plain``. ``select.launches``
+counts kernel launches; ``select_scales.last_routes`` names the copy route
+the last launch took for each (box, cls) map. The TPU kernel's limits (HW a
+multiple of 16, nc <= 255, the VMEM block budget) do not apply.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Sequence
 
 import torch
 
@@ -34,8 +40,10 @@ SOURCE = os.path.join(_PKG, "csrc", "select.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl",
 )
+MAX_SCALES = 4
+ROUTES = ("tma", "rows", "elements")  # the kernel's copy route codes 0, 1, 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -79,39 +87,57 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
-        fn = lib.yolo_select_launch
-        i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = [
-            ctypes.c_int,
-            ptr, i64, i64, i64,
-            ptr, i64, i64, i64,
-            i64, i64, ctypes.c_int, ctypes.c_int,
-            ptr, ptr, ptr,
-            ptr,
+        i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+        lib.yolo_select_launch.argtypes = [
+            i32, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr,
         ]
-        fn.restype = ctypes.c_int
+        lib.yolo_select_launch.restype = i32
+        lib.yolo_select_plan.argtypes = [i32, i32, i32, ptr]
+        lib.yolo_select_plan.restype = i32
         _lib = lib
     return _lib
 
 
-def _check(box: torch.Tensor, cls: torch.Tensor, reg_max: int) -> None:
-    if box.dim() != 3 or cls.dim() != 3:
-        raise ValueError(
-            f"select expects box [B, HW, 4*reg_max] and cls [B, HW, nc]; got "
-            f"{tuple(box.shape)} and {tuple(cls.shape)}"
-        )
-    if reg_max < 1 or box.shape[2] != 4 * reg_max:
-        raise ValueError(f"box has {box.shape[2]} channels; reg_max={reg_max}")
-    if box.shape[:2] != cls.shape[:2] or cls.shape[2] < 1:
-        raise ValueError(f"box {tuple(box.shape)} and cls {tuple(cls.shape)} disagree")
-    if box.dtype not in _DTYPE_CODE or cls.dtype != box.dtype:
-        raise TypeError(f"select takes f32 or bf16 maps of one dtype; got {box.dtype}, {cls.dtype}")
-    if box.device != cls.device:
-        raise ValueError(f"box on {box.device}, cls on {cls.device}")
+def plan(dtype: torch.dtype, nc: int, reg_max: int = 16) -> dict:
+    """The kernel's launch plan on the current card for a dtype and class
+    count: anchors per tile, ring stages, dynamic shared bytes per CTA,
+    CTAs per SM and SMs."""
+    out = (ctypes.c_int32 * 5)()
+    err = _load().yolo_select_plan(_DTYPE_CODE[dtype], nc, reg_max, out)
+    if err != 0:
+        raise RuntimeError(f"select plan failed: cudaError {err}")
+    return dict(zip(("tile", "stages", "smem_bytes", "ctas_per_sm", "sms"), out))
+
+
+def _check(pairs: Sequence, reg_max: int) -> None:
+    if not 1 <= len(pairs) <= MAX_SCALES:
+        raise ValueError(f"select takes 1 to {MAX_SCALES} scales, got {len(pairs)}")
+    box0, cls0 = pairs[0]
+    for box, cls in pairs:
+        if box.dim() != 3 or cls.dim() != 3:
+            raise ValueError(
+                f"select expects box [B, HW, 4*reg_max] and cls [B, HW, nc]; got "
+                f"{tuple(box.shape)} and {tuple(cls.shape)}"
+            )
+        if reg_max < 1 or box.shape[2] != 4 * reg_max:
+            raise ValueError(f"box has {box.shape[2]} channels; reg_max={reg_max}")
+        if box.shape[:2] != cls.shape[:2] or cls.shape[2] < 1:
+            raise ValueError(f"box {tuple(box.shape)} and cls {tuple(cls.shape)} disagree")
+        if box.shape[0] != box0.shape[0] or cls.shape[2] != cls0.shape[2]:
+            raise ValueError(
+                f"scales disagree on batch or classes: {tuple(cls.shape)} and {tuple(cls0.shape)}"
+            )
+        if box.dtype not in _DTYPE_CODE or cls.dtype != box.dtype or box.dtype != box0.dtype:
+            raise TypeError(
+                f"select takes f32 or bf16 maps of one dtype; got {box.dtype}, {cls.dtype} "
+                f"beside {box0.dtype}"
+            )
+        if box.device != cls.device or box.device != box0.device:
+            raise ValueError(f"maps on {box.device}, {cls.device} and {box0.device}")
 
 
 def select_plain(box: torch.Tensor, cls: torch.Tensor, reg_max: int = 16):
-    """The same function in plain torch ops (max / argmax / dfl_expectation)."""
+    """One scale in plain torch ops (max / argmax / dfl_expectation)."""
     b, hw, _ = box.shape
     mx = cls.amax(dim=-1).float()
     cid = cls.argmax(dim=-1).to(torch.int32)
@@ -119,36 +145,61 @@ def select_plain(box: torch.Tensor, cls: torch.Tensor, reg_max: int = 16):
     return mx, cid, ltrb
 
 
-def select(box: torch.Tensor, cls: torch.Tensor, reg_max: int = 16):
-    """Kernel on CUDA tensors, ``select_plain`` on CPU tensors; see the
-    module docstring for shapes."""
-    _check(box, cls, reg_max)
-    if box.device.type == "cpu":
-        return select_plain(box, cls, reg_max)
-    if box.device.type != "cuda":
-        raise ValueError(f"select runs on cuda or cpu tensors, not {box.device}")
-    b, hw, _ = box.shape
-    dev = box.device
-    mx = torch.empty((b, hw), dtype=torch.float32, device=dev)
-    cid = torch.empty((b, hw), dtype=torch.int32, device=dev)
-    ltrb = torch.empty((b, hw, 4), dtype=torch.float32, device=dev)
-    if b * hw == 0:
+def select_scales_plain(pairs: Sequence, reg_max: int = 16):
+    """The plain version of ``select_scales``: ``select_plain`` per scale,
+    concatenated over the anchors."""
+    outs = [select_plain(box, cls, reg_max) for box, cls in pairs]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def select_scales(pairs: Sequence, reg_max: int = 16):
+    """Kernel on CUDA tensors (one launch), ``select_scales_plain`` on CPU
+    tensors; see the module docstring for shapes."""
+    pairs = [tuple(p) for p in pairs]
+    _check(pairs, reg_max)
+    box0, cls0 = pairs[0]
+    if box0.device.type == "cpu":
+        return select_scales_plain(pairs, reg_max)
+    if box0.device.type != "cuda":
+        raise ValueError(f"select runs on cuda or cpu tensors, not {box0.device}")
+    for t in (x for p in pairs for x in p):
+        if t.shape[1] > 1 and t.shape[2] > 1 and 1 not in t.stride()[1:]:
+            raise ValueError(
+                f"select needs an anchor or a channel stride of 1; got strides {t.stride()}"
+            )
+    b, nc = box0.shape[0], cls0.shape[2]
+    a = sum(box.shape[1] for box, _ in pairs)
+    dev = box0.device
+    mx = torch.empty((b, a), dtype=torch.float32, device=dev)
+    cid = torch.empty((b, a), dtype=torch.int32, device=dev)
+    ltrb = torch.empty((b, a, 4), dtype=torch.float32, device=dev)
+    pairs = [(box, cls) for box, cls in pairs if box.shape[1] > 0]
+    if b == 0 or not pairs:
         return mx, cid, ltrb
+    desc = []
+    for box, cls in pairs:
+        desc += [box.data_ptr(), *box.stride(), cls.data_ptr(), *cls.stride(), box.shape[1]]
+    desc_arr = (ctypes.c_int64 * len(desc))(*desc)
+    routes = (ctypes.c_int32 * (2 * len(pairs)))()
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yolo_select_launch(
-            _DTYPE_CODE[box.dtype],
-            box.data_ptr(), *box.stride(),
-            cls.data_ptr(), *cls.stride(),
-            b, hw, cls.shape[2], reg_max,
-            mx.data_ptr(), cid.data_ptr(), ltrb.data_ptr(),
-            stream,
+            _DTYPE_CODE[box0.dtype], len(pairs), desc_arr, b, nc, reg_max,
+            mx.data_ptr(), cid.data_ptr(), ltrb.data_ptr(), routes, stream,
         )
     if err != 0:
         raise RuntimeError(f"select kernel launch failed: cudaError {err}")
     select.launches += 1
+    select_scales.last_routes = [(ROUTES[routes[2 * i]], ROUTES[routes[2 * i + 1]])
+                                 for i in range(len(pairs))]
     return mx, cid, ltrb
 
 
+def select(box: torch.Tensor, cls: torch.Tensor, reg_max: int = 16):
+    """One scale: ``select_scales([(box, cls)], reg_max)``."""
+    return select_scales([(box, cls)], reg_max)
+
+
 select.launches = 0
+select_scales.last_routes = []

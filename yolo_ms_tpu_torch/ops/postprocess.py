@@ -1,9 +1,10 @@
 """Fused serving post-process: raw head maps -> final detections.
 
 Port of ``yolo_ms_tpu/ops/postprocess.py:fused_postprocess``, with the
-structure of its ``use_pallas=True`` branch: per scale the ``select`` kernel
-yields (max logit, class id, ltrb) for every anchor; the scales are
-concatenated, the top ``pre_nms_topk`` anchors are taken with ``torch.topk``,
+structure of its ``use_pallas=True`` branch: one ``select_scales`` launch
+yields (max logit, class id, ltrb) for every anchor of every scale, written
+straight into the concatenated outputs; the top ``pre_nms_topk`` anchors are
+taken with ``torch.topk``,
 gated by confidence (strict ``sigmoid > conf_thresh``), their ltrb and class
 ids gathered, their anchors computed arithmetically from the flat index,
 then class-offset greedy NMS (``nms_fixed``), the top ``max_det``, and the
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_ms_tpu_torch.models.decode import DEFAULT_STRIDES
-from yolo_ms_tpu_torch.ops.kernels.select import select, select_plain
+from yolo_ms_tpu_torch.ops.kernels.select import select_scales, select_scales_plain
 from yolo_ms_tpu_torch.ops.nms import CLASS_OFFSET, gather_rows, nms_fixed
 
 
@@ -48,12 +49,11 @@ def fused_postprocess(
 
     The maps may be views with any strides (a ``permute(0, 2, 3, 1)`` of the
     NCHW head output is read in place). ``use_kernel=False`` runs the plain
-    torch version of ``select`` on any device.
+    torch version of ``select_scales`` on any device.
     """
-    select_fn = select if use_kernel else select_plain
     split = isinstance(raw_maps[0], (tuple, list))
     nb = 4 * reg_max
-    mx_l, cid_l, ltrb_l, shapes = [], [], [], []
+    pairs, shapes = [], []
     for m in raw_maps:
         if split:
             box_m, cls_m = m
@@ -65,14 +65,11 @@ def fused_postprocess(
             h, w = m.shape[1:3]
         if cls.shape[-1] != num_classes:
             raise ValueError(f"expected {num_classes} class channels, got {cls.shape[-1]}")
-        mx, cid, ltrb = select_fn(box, cls, reg_max)
-        mx_l.append(mx)
-        cid_l.append(cid)
-        ltrb_l.append(ltrb)
+        pairs.append((box, cls))
         shapes.append((h, w))
-    max_logit = torch.cat(mx_l, dim=1)  # [B, A] f32
-    cls_id = torch.cat(cid_l, dim=1)  # [B, A] i32
-    ltrb_all = torch.cat(ltrb_l, dim=1)  # [B, A, 4] f32
+    # [B, A] f32, [B, A] i32, [B, A, 4] f32: one launch writes all scales
+    select_fn = select_scales if use_kernel else select_scales_plain
+    max_logit, cls_id, ltrb_all = select_fn(pairs, reg_max)
     dev = max_logit.device
     a = max_logit.shape[1]
     k = min(pre_nms_topk, a)
