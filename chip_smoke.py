@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving path on one card, end to end.
+"""Drive the PyTorch/CUDA port's serving and training paths on one card.
 
     python3 chip_smoke.py
 
@@ -32,7 +32,29 @@ that fails, and without a card. Phases, each printing one line:
    on each scale alone; the host's time to enqueue one call is measured
    apart. Each time stands beside its bound (bytes over the memory rate
    against operations over the f32 rate of the card that ``nvidia-smi``
-   names).
+   names);
+6. training on the card:
+   a. one f32 train step (TF32 off) of the golden yolov8-n weights with
+      SGD-nesterov, weight decay, clipping and EMA, on the card and on the
+      CPU in this process: loss terms within rtol 1e-4; params, BN
+      statistics and EMA within rtol 1e-3 / atol 1e-5;
+   b. the JAX package's learning recipe (``tests/test_learning.py``:
+      yolov8-n, 160 px, nc=3, 32 synthetic images, batch 16, 60 epochs,
+      Adam 2e-3, cosine with warmup 20) through ``Trainer.fit`` and
+      ``validate``: mAP@0.5 must exceed 0.5;
+   c. yolo-ms-xs at full width and depth, nc=80, 640x640, bf16 autocast,
+      batch 32, with the ``coco_yolo_ms.yaml`` settings (warmup cut to 3
+      steps), one epoch of 12 steps on synthetic 640x480 images and a
+      64-image validation: every step finite, none skipped, positives in
+      each; the first step's bf16 loss within 5 % of the f32 loss of the
+      same batch; ``select.launches`` rising by exactly the number of val
+      batches in ``fit`` (counts set to 0 just before it) and in a timed
+      ``validate``; the checkpoint re-read by ``resume``. It prints ms/step
+      (CUDA events), img/s, the host's wait for the loader, the gap from one
+      step's start to the next (host clock), the end-to-end rate (every
+      training image over the whole fit's wall time, validation and
+      checkpoint writes included), the peak device memory and the validate
+      time, then a breakdown of steps without the loader.
 
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -43,13 +65,19 @@ instead times the select kernel of another checkout of the repo (``DIR``,
 for example the parent commit unpacked with ``git archive``) against this
 one on the same inputs, in turns (parent, this, this, parent), after
 phases 1 and 2.
+
+The kernel JSON counts ``select`` launches on both paths: the serving run
+of phase 5 and the training run of phase 6c (``launches_by_path``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -75,6 +103,10 @@ from yolo_ms_tpu_torch.ops.kernels.select import (
 )
 from yolo_ms_tpu_torch.ops.nms import nms_fixed
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
+from yolo_ms_tpu_torch.train.loss import DetectionLoss
+from yolo_ms_tpu_torch.train.optim import build_optimizer
+from yolo_ms_tpu_torch.train.trainer import Trainer, TrainState, make_train_step
+from yolo_ms_tpu_torch.utils.config import Config, TrainingConfig, load_config
 from yolo_ms_tpu_torch.utils.convert import (
     load_npz,
     state_dict_to_variables,
@@ -499,6 +531,344 @@ def check_outputs(out: dict, arch: str) -> None:
         raise AssertionError(f"{arch}: scores or classes out of range")
 
 
+# ---------------------------------------------------------------- phase 6
+
+# 6a: one f32 step of the golden yolov8-n on the card against the CPU's
+STEP_LOSS_RTOL = 1e-4
+STEP_STATE_TOL = dict(rtol=1e-3, atol=1e-5)
+# 6b: the learning recipe of tests/test_learning.py
+LEARN_EPOCHS = 60
+LEARN_MAP_MIN = 0.5
+LEARN_REFERENCE_MAP = 0.94  # the JAX package's result on this recipe (its test's docstring)
+# 6c: the recipe of yolo_ms_tpu_torch/configs/coco_yolo_ms.yaml, read from its
+# JSON copy beside it (the card machine has no PyYAML;
+# tests/test_torch_config.py holds the copy equal to the YAML)
+COCO_YOLO_MS = os.path.join(ROOT, "yolo_ms_tpu_torch", "configs", "coco_yolo_ms.json")
+FULL_STEPS = 12  # training steps of 6c (one epoch)
+FULL_VAL_IMAGES = 64
+FULL_WARMUP = 3  # the recipe's 3000 warmup steps, cut to fit 12 steps
+BF16_LOSS_RTOL = 0.05
+
+
+def make_coco_dataset(*args, **kwargs):
+    """``tests/make_fixtures.make_coco_dataset``, loaded from this checkout
+    (``tests`` is not a package, and another one may be installed)."""
+    path = os.path.join(ROOT, "tests", "make_fixtures.py")
+    spec = importlib.util.spec_from_file_location("make_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make_coco_dataset(*args, **kwargs)
+
+
+def _seeded_train_batch(b: int, img: int, nc: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.3, 0.7, (b, 6, 2))
+    wh = rng.uniform(0.15, 0.6, (b, 6, 2))
+    mask = np.zeros((b, 6), bool)
+    mask[:, :4] = True
+    return {
+        "images": torch.from_numpy(rng.integers(0, 256, (b, img, img, 3), dtype=np.uint8)),
+        "boxes": torch.from_numpy(np.concatenate([c, wh], -1).astype(np.float32)),
+        "labels": torch.from_numpy(rng.integers(0, nc, (b, 6)).astype(np.int32)),
+        "mask": torch.from_numpy(mask),
+    }
+
+
+def _one_train_step(device: str, state_dict: dict, batch: dict):
+    """One f32 train step of yolov8-n (nc=3) from ``state_dict``, with
+    SGD-nesterov, weight decay, clipping and EMA (its ramp at step 4000)."""
+    model = build_model("n", num_classes=3, device="cpu")
+    model.load_state_dict(state_dict, strict=True)
+    cfg = TrainingConfig(batch_size=8, epochs=1, optimizer="sgd", learning_rate=0.01,
+                         weight_decay=5e-4, grad_clip_norm=10.0, ema_decay=0.9999)
+    tx, _ = build_optimizer(cfg, 4)
+    state = TrainState.create(model.to(device), tx, ema=True)
+    state.step.fill_(4000)
+    step = make_train_step(DetectionLoss(num_classes=3), tx, cfg.ema_decay, torch.float32)
+    metrics = step(state, {k: v.to(device) for k, v in batch.items()})
+    return {k: float(v) for k, v in metrics.items()}, state
+
+
+def phase_step_parity() -> dict:
+    """6a: the golden yolov8-n weights, one f32 step (TF32 off) on the card
+    and on the CPU, in this process: loss terms within STEP_LOSS_RTOL;
+    params, BN statistics and EMA within STEP_STATE_TOL."""
+    sd = load_npz(os.path.join(ROOT, "tests", "golden", "trained", "weights.npz"))
+    batch = _seeded_train_batch(8, 160, 3, seed=5)
+    card_m, card = _one_train_step("cuda", sd, batch)
+    cpu_m, cpu = _one_train_step("cpu", sd, batch)
+    if card_m["skipped_nonfinite"] or cpu_m["skipped_nonfinite"] or cpu_m["num_fg"] <= 0:
+        raise AssertionError(f"6a: step skipped or without positives: {card_m} / {cpu_m}")
+    worst_loss = 0.0
+    for k in ("loss_box", "loss_cls", "loss_dfl", "total_loss"):
+        rel = abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k])
+        worst_loss = max(worst_loss, rel)
+        if not rel <= STEP_LOSS_RTOL:
+            raise AssertionError(f"6a: {k} card {card_m[k]} vs CPU {cpu_m[k]}")
+    worst = 0.0
+    for name in ("params", "stats", "ema_params", "ema_stats"):
+        got, want = getattr(card, name).cpu(), getattr(cpu, name)
+        if not torch.allclose(got, want, **STEP_STATE_TOL):
+            raise AssertionError(f"6a: {name} differ by {(got - want).abs().max().item()}")
+        worst = max(worst, (got - want).abs().max().item())
+    print(f"phase 6a train step yolov8-n golden 160px bs=8 f32 (TF32 off), SGD-nesterov + "
+          f"decay + clip + EMA: card == CPU, loss terms max rel err {worst_loss:.2e} "
+          f"(num_fg {int(card_m['num_fg'])}), params/stats/EMA max abs err {worst:.2e}")
+    return {"loss_rel_err": worst_loss, "state_abs_err": worst}
+
+
+@contextlib.contextmanager
+def _quiet(log_path: str):
+    """Send the trainer's per-step prints to a log file."""
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        yield
+
+
+def phase_learning(work: str) -> dict:
+    """6b: the JAX package's learning recipe (tests/test_learning.py) through
+    ``Trainer(Config.from_dict(...)).fit()`` on the card, then ``validate``."""
+    root = os.path.join(work, "learn")
+    images, ann = make_coco_dataset(root, num_images=32, num_classes=3, img_w=320,
+                                    img_h=256, seed=1)
+    cfg = Config.from_dict({
+        "dataset": {"train_images_path": images, "train_annotations_path": ann,
+                    "val_images_path": images, "val_annotations_path": ann,
+                    "num_classes": 3, "max_gt": 8},
+        "model": {"architecture": "n", "input_size": [160, 160], "compute_dtype": "float32"},
+        "training": {
+            "batch_size": 16, "epochs": LEARN_EPOCHS, "learning_rate": 2e-3,
+            "optimizer": "adam", "weight_decay": 0.0, "val_interval": LEARN_EPOCHS,
+            "save_period": 1000, "experiment_name": "learn",
+            "log_dir": os.path.join(root, "runs"), "augmentation": {"fliplr": 0.5},
+            "grad_clip_norm": 10.0,
+            "scheduler": {"type": "cosine", "cosine_t_max": LEARN_EPOCHS, "warmup_steps": 20},
+        },
+        "evaluation": {"batch_size": 16, "confidence_threshold": 0.25},
+        "workers": 4,
+    })
+    trainer = Trainer(cfg, verbose=False)
+    t0 = time.perf_counter()
+    with _quiet(os.path.join(root, "fit.log")):
+        trainer.fit()
+    fit_s = time.perf_counter() - t0
+    final = trainer.validate()
+    if not final > LEARN_MAP_MIN:
+        raise AssertionError(f"6b: mAP@0.5 {final:.4f} <= {LEARN_MAP_MIN} on the learning recipe")
+    steps = int(trainer.state.step)
+    print(f"phase 6b learning recipe yolov8-n 160px nc=3 f32, 32 images, bs 16, "
+          f"{LEARN_EPOCHS} epochs ({steps} steps), Adam 2e-3, cosine + warmup 20: "
+          f"mAP@0.5 {final:.4f} (> {LEARN_MAP_MIN}; the JAX package reached "
+          f"{LEARN_REFERENCE_MAP} on this recipe, an accuracy, not a speed); fit {fit_s:.1f} s")
+    return {"map50": final, "steps": steps, "fit_s": fit_s}
+
+
+def _full_config(root: str, images: str, ann: str, val_images: str, val_ann: str,
+                 name: str) -> Config:
+    d = load_config(COCO_YOLO_MS).to_dict()
+    d["dataset"].update(train_images_path=images, train_annotations_path=ann,
+                        val_images_path=val_images, val_annotations_path=val_ann)
+    d["training"].update(batch_size=BATCH, epochs=1, val_interval=1, experiment_name=name,
+                         log_dir=os.path.join(root, "runs"))
+    d["training"]["scheduler"]["warmup_steps"] = FULL_WARMUP
+    return Config.from_dict(d)
+
+
+def phase_full_width(work: str) -> dict:
+    """6c: yolo-ms-xs at full width and depth, nc=80, 640x640, bf16 autocast,
+    batch 32, coco_yolo_ms.yaml settings, one epoch of FULL_STEPS steps on
+    synthetic 640x480 COCO images, validation over 64 images, a checkpoint
+    written and resumed. The counted run of the training path: every count
+    at 0 just before ``fit``, read just after."""
+    root = os.path.join(work, "full")
+    images, ann = make_coco_dataset(os.path.join(root, "train"), num_images=FULL_STEPS * BATCH,
+                                    num_classes=NC, img_w=640, img_h=480, max_objects=12,
+                                    seed=2)
+    val_images, val_ann = make_coco_dataset(os.path.join(root, "val"),
+                                            num_images=FULL_VAL_IMAGES, num_classes=NC,
+                                            img_w=640, img_h=480, max_objects=12, seed=3)
+    cfg = _full_config(root, images, ann, val_images, val_ann, "full")
+    trainer = Trainer(cfg, verbose=False)
+    if len(trainer.train_loader) != FULL_STEPS:
+        raise AssertionError(f"6c: {len(trainer.train_loader)} steps per epoch")
+    val_batches = len(trainer.val_loader)
+
+    # the first batch's loss in f32 on the card, on a copy of the model (a
+    # train-mode forward moves the BN statistics)
+    batches = trainer.train_loader.epoch(0)
+    first_batch = trainer._to_device(trainer._bucket_gt(next(batches)))
+    batches.close()
+    probe = copy.deepcopy(trainer.state.model)
+    x = device_normalize_images(first_batch["images"], torch.float32).permute(0, 3, 1, 2)
+    with torch.no_grad(), full_f32():
+        f32_loss, _ = trainer.loss_fn(probe(x.contiguous()), first_batch["boxes"],
+                                      first_batch["labels"], first_batch["mask"])
+    f32_loss = float(f32_loss)
+    del probe, x
+
+    inner = trainer._train_step
+    events, metrics, host_starts = [], [], []
+
+    def timed_step(state, batch):
+        host_starts.append(time.perf_counter())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = inner(state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+        return m
+
+    trainer._train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # counted run of the training path
+    select.launches = 0
+    nms_fixed.sweeps = 0
+    t0 = time.perf_counter()
+    with _quiet(os.path.join(root, "fit.log")):
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = select.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if launches != val_batches:
+        raise AssertionError(f"6c: select launched {launches} times in a fit whose "
+                             f"validation ran {val_batches} batches")
+
+    host = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if len(host) != FULL_STEPS:
+        raise AssertionError(f"6c: {len(host)} steps run, expected {FULL_STEPS}")
+    for i, m in enumerate(host):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"6c: step {i + 1} not finite: {m}")
+        if m["skipped_nonfinite"] != 0.0 or m["num_fg"] <= 0:
+            raise AssertionError(f"6c: step {i + 1} skipped or without positives: {m}")
+    bf16_rel = abs(host[0]["total_loss"] - f32_loss) / abs(f32_loss)
+    if not bf16_rel <= BF16_LOSS_RTOL:
+        raise AssertionError(f"6c: first step bf16 loss {host[0]['total_loss']} vs f32 "
+                             f"{f32_loss} (rel {bf16_rel:.3f})")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    med_ms = statistics.median(step_ms[2:])
+    waits = trainer.data_wait_s
+    wait_ms = statistics.median(waits[2:]) * 1e3
+    # end to end: every training image over the whole fit's wall time
+    fit_img_s = FULL_STEPS * BATCH / fit_s
+    # a host statistic of the step loop: from one step's start to the next's
+    period_ms = statistics.median(b - a for a, b in zip(host_starts[2:], host_starts[3:])) * 1e3
+
+    # validate alone: timed, and one select launch per val batch
+    before = select.launches
+    t0 = time.perf_counter()
+    val_map = trainer.validate()
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t0) * 1e3
+    if select.launches - before != val_batches:
+        raise AssertionError(f"6c: validate launched select {select.launches - before} times "
+                             f"for {val_batches} batches")
+
+    # the checkpoint written by fit, read back by resume
+    ckpt = os.path.join(trainer.ckpt.dir, "last.ckpt")
+    resumed = Trainer(_full_config(root, images, ann, val_images, val_ann, "resumed"),
+                      verbose=False)
+    resumed.resume(ckpt)
+    if not (resumed.start_epoch == 1 and int(resumed.state.step) == FULL_STEPS
+            and torch.equal(resumed.state.params, trainer.state.params)
+            and torch.equal(resumed.state.ema_stats, trainer.state.ema_stats)
+            and all(torch.equal(resumed.state.opt_state[k], v)
+                    for k, v in trainer.state.opt_state.items())):
+        raise AssertionError("6c: resumed state differs from the trained one")
+    ckpt_mb = os.path.getsize(ckpt) / 1e6
+    alone = step_breakdown(resumed, first_batch)
+    print(f"phase 6c train yolo-ms-xs nc={NC} {IMG}px bf16 bs={BATCH}, coco_yolo_ms.yaml "
+          f"recipe (warmup cut to {FULL_WARMUP}), {FULL_STEPS} steps: all finite, none "
+          f"skipped, num_fg {min(m['num_fg'] for m in host):.0f}-"
+          f"{max(m['num_fg'] for m in host):.0f}; losses {host[0]['total_loss']:.4f} -> "
+          f"{host[-1]['total_loss']:.4f}; first step bf16 {host[0]['total_loss']:.4f} vs f32 "
+          f"{f32_loss:.4f} (rel {bf16_rel:.4f}); {med_ms:.3f} ms/step (CUDA events, median of "
+          f"steps 3-{FULL_STEPS}; all {', '.join(f'{t:.1f}' for t in step_ms)}), "
+          f"{BATCH / med_ms * 1e3:.1f} img/s; host wait for the loader {wait_ms:.1f} ms/step "
+          f"(median); host-clock gap from one step's start to the next {period_ms:.1f} ms "
+          f"(median of steps 3-{FULL_STEPS}); end to end {fit_img_s:.1f} img/s: "
+          f"{FULL_STEPS * BATCH} images over the whole fit's {fit_s:.2f} s (loader start, "
+          f"first step, validation and checkpoint writes included); peak memory "
+          f"{peak_gib:.2f} GiB; validate "
+          f"{FULL_VAL_IMAGES} images {val_ms:.1f} ms, mAP@0.5 {val_map:.4f}, select "
+          f"launches {launches} in fit for {val_batches} val batches; checkpoint "
+          f"{ckpt_mb:.1f} MB written and resumed")
+    parts = ", ".join(f"{k} {v:.2f} ms" for k, v in alone["ranges"].items() if v > 0)
+    busy = alone["busy_ms"]
+    print(f"phase 6c step alone (the first batch resident on the card, no loader; "
+          f"{alone['steps']} steps after 2 warm-up): {alone['event_ms']:.3f} ms/step (CUDA "
+          f"events, median), host {alone['host_ms']:.3f} ms to enqueue one step (median); "
+          f"torch.profiler over {alone['profiled']} steps: kernel time "
+          + (f"{busy:.3f} ms/step in {alone['device_ops']:.0f} device operations "
+             f"({alone['host_ms'] / max(alone['device_ops'], 1) * 1e3:.1f} us of host "
+             f"enqueue each), {busy / alone['wall_ms'] * 100:.1f} % of the "
+             f"{alone['wall_ms']:.3f} ms/step wall (idle {100 - busy / alone['wall_ms'] * 100:.1f}"
+             f" %); in the fit's {med_ms:.3f} ms/step the card was busy "
+             f"{busy / med_ms * 100:.1f} %" if busy else "not measured")
+          + f"; device time by range: {parts or 'not measured'}")
+    return {"launches": launches, "step_ms": med_ms, "img_s": BATCH / med_ms * 1e3,
+            "wait_ms": wait_ms, "period_ms": period_ms, "fit_s": fit_s,
+            "fit_img_s": fit_img_s, "peak_gib": peak_gib, "val_ms": val_ms,
+            "alone": alone}
+
+
+def step_breakdown(trainer: Trainer, batch: dict, steps: int = 10, profiled: int = 3) -> dict:
+    """Steady-state train steps on one batch resident on the card, without
+    the loader: the CUDA-event interval and the host's enqueue time per step
+    (medians), then ``torch.profiler`` over ``profiled`` steps: the kernel
+    time per step (the card's busy time), the number of device operations
+    (kernels, copies, memsets) per step, the wall time per step, and the
+    device time of the step's ranges (``train_step/forward`` ...; the
+    backward's is that of the autograd engine's nodes). Where the
+    profiler records no device time, those read 0 and are printed as not
+    measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer._train_step
+    for _ in range(2):
+        step(trainer.state, batch)
+    torch.cuda.synchronize()
+    pairs, host = [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        step(trainer.state, batch)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            step(trainer.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / profiled
+    busy_us, ranges = 0.0, {}
+    backward_us, device_ops = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.key.startswith("train_step/"):
+            ranges[ev.key[len("train_step/"):]] = ev.device_time_total / 1e3 / profiled
+        elif ev.key.startswith("autograd::engine::evaluate_function"):
+            # the backward runs on the autograd engine's thread, outside the
+            # main thread's ``train_step/backward`` range: count its nodes
+            backward_us += ev.device_time_total
+        elif ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            device_ops += ev.count
+    ranges["backward"] = backward_us / 1e3 / profiled
+    return {
+        "steps": steps, "profiled": profiled,
+        "event_ms": statistics.median(s.elapsed_time(e) for s, e in pairs),
+        "host_ms": statistics.median(host), "wall_ms": wall_ms,
+        "busy_ms": busy_us / 1e3 / profiled, "ranges": ranges,
+        "device_ops": device_ops / profiled,
+    }
+
+
 def _load_select_of(checkout: str):
     """The select module of another checkout; it builds that checkout's
     ``csrc/select.cu`` into that checkout's ``build/``."""
@@ -618,16 +988,23 @@ def main() -> int:
             f"routes {_route_names(sel['routes'])}); each scale alone: {per_scale}"
         )
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        phase_step_parity()
+        phase_learning(work)
+        full = phase_full_width(work)
+
     # one batch of the flagship, one launch
     sel = runs[0]["select"]
     bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
     worst = max([worst] + [r["select"]["err"] for r in runs])
+    serve_launches = sum(r["launches"] for r in runs)
     kernels = [{
         "name": "select",
         "route": "cuda",
         "source": "yolo_ms_tpu_torch/csrc/select.cu",
         "replaces": "yolo_ms_tpu/ops/pallas/select.py:56",
-        "launches": sum(r["launches"] for r in runs),
+        "launches": serve_launches + full["launches"],
+        "launches_by_path": {"serve": serve_launches, "train_validate": full["launches"]},
         "max_abs_err": worst,
         "ms": sel["ms"],
         "plain_ms": sel["plain_ms"],

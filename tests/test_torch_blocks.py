@@ -183,3 +183,50 @@ def test_yolo_params_and_bn_constants():
     assert abs(tb.BN_MOMENTUM - (1 - jb.BN_MOMENTUM)) < 1e-12
     with pytest.raises(ValueError):
         tb.yolo_params("q")
+
+
+TRAIN_CASES = ("conv3x3_s2_odd", "conv_depthwise_k5", "c2f", "msblock_k5", "msfusion_upsample")
+
+
+@pytest.mark.parametrize("name", TRAIN_CASES)
+def test_block_train_mode_matches_flax(name):
+    """Train mode: the output is normalized with the batch statistics, and
+    the running statistics move as flax's do (decay 0.97, the BIASED batch
+    variance); outputs and new statistics rtol/atol 1e-4, gradients of the
+    output sum w.r.t. the input too."""
+    flax_ctor, torch_ctor, shapes, kw, _ = CASES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()) + 1)
+    xs = [rng.standard_normal(s).astype(np.float32) * 2.0 + 0.5 for s in shapes]
+    fmod = flax_ctor()
+    shapes_tree = jax.eval_shape(
+        functools.partial(fmod.init, train=False, **kw), jax.random.PRNGKey(0),
+        *map(jnp.asarray, xs)
+    )
+    variables = _randomize(shapes_tree, rng)
+
+    def jfn(*ins):
+        out, upd = fmod.apply(variables, *ins, train=True, mutable=["batch_stats"], **kw)
+        return out.sum(), (out, upd["batch_stats"])
+
+    (_, (want, new_stats)), jgrads = jax.value_and_grad(
+        jfn, argnums=tuple(range(len(xs))), has_aux=True)(*map(jnp.asarray, xs))
+    tmod = torch_ctor()
+    tmod.load_state_dict(variables_to_state_dict(variables), strict=True)
+    tmod.train()
+    tins = [torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True) for x in xs]
+    got = tmod(*tins, **kw)
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want), **TOL)
+    for t, jg in zip(tins, jgrads):
+        np.testing.assert_allclose(t.grad.permute(0, 2, 3, 1).numpy(), np.asarray(jg), **TOL)
+    want_sd = variables_to_state_dict({"batch_stats": jax.device_get(new_stats)})
+    got_sd = tmod.state_dict()
+    assert want_sd.keys() <= got_sd.keys()
+    for key, val in want_sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        np.testing.assert_allclose(got_sd[key].numpy(), val.numpy(), err_msg=key, **TOL)
+        # the statistics moved from their start values
+        if key.endswith("running_var"):
+            start = variables_to_state_dict(variables)[key]
+            assert not torch.allclose(got_sd[key], start)

@@ -16,8 +16,10 @@ from yolo_ms_tpu.models.deploy import is_deploy_variables as jax_is_deploy
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables
 from yolo_ms_tpu_torch.models.registry import build_model
 from yolo_ms_tpu_torch.utils.convert import (
+    flax_param_path,
     load_npz,
     state_dict_to_variables,
+    train_state_to_state_dicts,
     variables_to_state_dict,
 )
 
@@ -117,3 +119,36 @@ def test_unmapped_keys_raise():
         variables_to_state_dict({"params": {"x": {"embedding": np.zeros(3)}}})
     with pytest.raises(KeyError):
         state_dict_to_variables({"x.weight": torch.zeros(2, 2)})
+
+
+def test_state_dict_to_variables_copies():
+    """The numpy leaves are copies: training the model in place afterwards
+    leaves them as they were."""
+    model = build_model("n", num_classes=3, device="cpu")
+    variables = state_dict_to_variables(model.state_dict())
+    before = variables["params"]["backbone"]["conv0"]["conv"]["kernel"].copy()
+    stats = variables["batch_stats"]["backbone"]["conv0"]["bn"]["var"].copy()
+    with torch.no_grad():
+        model.backbone.conv0.conv.weight.add_(1.0)
+        model.backbone.conv0.bn.running_var.mul_(3.0)
+    np.testing.assert_array_equal(variables["params"]["backbone"]["conv0"]["conv"]["kernel"], before)
+    np.testing.assert_array_equal(variables["batch_stats"]["backbone"]["conv0"]["bn"]["var"], stats)
+
+
+def test_train_state_and_param_paths():
+    """A JAX train state crosses to (model, EMA) state_dicts, and each port
+    parameter is named by its flax path."""
+    model = build_model("n", num_classes=3, device="cpu")
+    variables = state_dict_to_variables(model.state_dict())
+    state = {"params": variables["params"], "batch_stats": variables["batch_stats"],
+             "ema_params": variables["params"], "ema_batch_stats": variables["batch_stats"]}
+    sd, ema = train_state_to_state_dicts(state)
+    assert sd.keys() == ema.keys() == model.state_dict().keys()
+    assert train_state_to_state_dicts(dict(state, ema_params=None))[1] is None
+    for name, p in model.named_parameters():
+        node = variables["params"]
+        for key in flax_param_path(name, p.ndim).split("/"):
+            node = node[key]
+        assert node.size == p.numel(), name
+    with pytest.raises(KeyError):
+        flax_param_path("backbone.conv0.bn.running_mean", 1)

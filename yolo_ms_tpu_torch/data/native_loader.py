@@ -1,7 +1,8 @@
 """ctypes binding for the native C++ decode/resize library (native/loader.cpp).
 
-The single-image calls of ``yolo_ms_tpu/data/native_loader.py``, copied;
-both packages share the one library at ``native/libyolodata.so``.
+The calls of ``yolo_ms_tpu/data/native_loader.py``, copied (single images
+for serving, whole batches for the eval loader); both packages share the
+one library at ``native/libyolodata.so``.
 
 Optional fast path: `available()` is False (and everything falls back to
 cv2/PIL in data/decode.py) unless native/libyolodata.so has been built via
@@ -49,6 +50,15 @@ def _load():
                     ctypes.c_int,
                 ]
                 lib.yd_decode_resize.restype = ctypes.c_int
+                lib.yd_decode_resize_batch.argtypes = [
+                    ctypes.POINTER(ctypes.c_char_p),
+                    ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.c_int,
+                    ctypes.c_int,
+                    ctypes.c_int,
+                ]
+                lib.yd_decode_resize_batch.restype = ctypes.c_int
                 _LIB = lib
                 break
             except OSError:
@@ -99,3 +109,25 @@ def decode_resize(path: str, out_h: int, out_w: int) -> np.ndarray | None:
         return None
     return out
 
+
+def decode_resize_batch(
+    paths: list[str], out_h: int, out_w: int, num_threads: int = 4
+) -> np.ndarray | None:
+    """Decode a whole batch in one native call -> [N, out_h, out_w, 3] uint8.
+    Failed images come back zero-filled (matching the loader's dummy-sample
+    tolerance, reference dataset.py:185-207)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(paths)
+    out = np.empty((n, out_h, out_w, 3), np.uint8)
+    arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    lib.yd_decode_resize_batch(
+        arr,
+        n,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        out_h,
+        out_w,
+        num_threads,
+    )
+    return out

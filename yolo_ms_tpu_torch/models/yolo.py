@@ -100,6 +100,7 @@ class _HeadBranch(nn.Module):
         self.conv1 = ConvBnSiLU(c_in, mid, 3)
         self.conv2 = ConvBnSiLU(mid, mid, 3)
         self.pred = nn.Conv2d(mid, out, 1)
+        self.bias_prior = bias_prior
         nn.init.constant_(self.pred.bias, bias_prior)
 
     def forward(self, x):

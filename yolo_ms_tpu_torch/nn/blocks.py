@@ -6,6 +6,10 @@ tree maps onto a state_dict by renaming and transposing alone
 (``utils/convert.py``). Unlike flax, torch convs need their input width, so
 every block takes ``c_in`` first.
 
+Train mode follows flax: ``BatchNorm2d`` normalizes with the biased batch
+variance (as torch does) and also updates ``running_var`` with it (torch's
+``nn.BatchNorm2d`` would use the unbiased one), with flax's decay 0.97.
+
 Deploy structure (BN folded into the conv) is a property of the module,
 not a global context: ``ConvBnSiLU.to_deploy()`` gives the conv a bias and
 drops its BatchNorm (``models/deploy.py`` folds the state_dict to match).
@@ -43,6 +47,30 @@ def yolo_params(version: str) -> tuple[float, float, float]:
     return table[version]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same state_dict) with flax's train-mode update.
+
+    In train mode the output is normalized with the batch mean and biased
+    variance, and the running statistics move by
+    ``stat = 0.97 * stat + 0.03 * batch_stat`` with the BIASED batch
+    variance, as flax's ``nn.BatchNorm`` does. Eval mode reads the running
+    statistics. ``num_batches_tracked`` is not used (the momentum is fixed).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps
+        )
+        with torch.no_grad():
+            var = invstd.pow(-2) - self.eps  # the biased batch variance
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
+
+
 class ConvBnSiLU(nn.Module):
     """Conv2d(bias=False) -> BatchNorm2d(eps 1e-3) -> SiLU (optional).
 
@@ -70,7 +98,7 @@ class ConvBnSiLU(nn.Module):
             groups=groups,
             bias=False,
         )
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     def to_deploy(self) -> None:

@@ -17,6 +17,12 @@ becomes ``backbone.stage_2.block_0.branch_1.expand.conv.weight`` and
 ``params/head/box_0/pred/bias`` becomes ``head.box_0.pred.bias``. The
 transpose is the one of ``yolo_ms_tpu/utils/checkpoint.py`` (OIHW ->
 HWIO there, its inverse here). Both directions are exact.
+
+A JAX train state crosses the same way (``train_state_to_state_dicts``):
+``params`` + ``batch_stats`` become the model's state_dict and
+``ema_params`` + ``ema_batch_stats`` the EMA model's. ``flax_param_path``
+names a port parameter by its flax path, which the ``freeze_layers``
+patterns match.
 """
 
 from __future__ import annotations
@@ -78,8 +84,9 @@ def variables_to_state_dict(variables) -> dict[str, torch.Tensor]:
 
 
 def state_dict_to_variables(state_dict) -> dict:
-    """torch state_dict -> nested flax variables of numpy arrays:
-    {'params': ...} plus {'batch_stats': ...} when BN stats are present."""
+    """torch state_dict -> nested flax variables of numpy arrays (copies, so
+    later in-place updates of the model do not reach them): {'params': ...}
+    plus {'batch_stats': ...} when BN stats are present."""
     params: dict = {}
     stats: dict = {}
     for key, t in state_dict.items():
@@ -103,11 +110,42 @@ def state_dict_to_variables(state_dict) -> dict:
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.array(arr, order="C")  # a copy: no alias of the tensor
     out = {"params": params}
     if stats:
         out["batch_stats"] = stats
     return out
+
+
+def flax_param_path(name: str, ndim: int) -> str:
+    """Port parameter name -> flax params path: ``backbone.conv0.conv.weight``
+    (4-d) -> ``backbone/conv0/conv/kernel``, ``backbone.conv0.bn.weight``
+    (1-d) -> ``backbone/conv0/bn/scale``, ``*.bias`` -> ``*/bias``."""
+    *mod, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 4 else "scale"
+    elif leaf != "bias":
+        raise KeyError(f"not a parameter name: {name}")
+    return "/".join(mod + [leaf])
+
+
+def train_state_to_state_dicts(state) -> tuple[dict, dict | None]:
+    """A JAX ``TrainState`` (or a mapping with its fields), as numpy, ->
+    (model state_dict, EMA state_dict or None): ``params`` +
+    ``batch_stats``, and ``ema_params`` + ``ema_batch_stats``."""
+
+    def field(key):
+        return state[key] if isinstance(state, Mapping) else getattr(state, key)
+
+    model = variables_to_state_dict(
+        {"params": field("params"), "batch_stats": field("batch_stats")}
+    )
+    if field("ema_params") is None:
+        return model, None
+    ema = variables_to_state_dict(
+        {"params": field("ema_params"), "batch_stats": field("ema_batch_stats")}
+    )
+    return model, ema
 
 
 def load_npz(path: str) -> dict[str, torch.Tensor]:
