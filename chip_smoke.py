@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one card.
+"""Drive the PyTorch/CUDA port's serving, training and tool paths on one card.
 
     python3 chip_smoke.py
 
@@ -56,6 +56,30 @@ that fails, and without a card. Phases, each printing one line:
       checkpoint writes included), the peak device memory and the validate
       time, then a breakdown of steps without the loader.
 
+7. the tools on the card, each printing one line:
+   a. ``tools.test`` on the golden yolov8-n from its ``weights.npz`` and from
+      a reference-format ``.pt`` made from the same weights: the golden
+      detections, one ``select`` launch per batch;
+   b. ``tools.export`` of 6c's ``last.ckpt`` (EMA) to a folded f32 and a
+      folded bf16 file (params, MB, seconds); the f32 export's raw maps
+      against the unfolded EMA model's (TF32 off, atol 1e-3); ``tools.val``
+      on each export over 6c's 64 val images at 640², batch 32: one
+      ``select`` launch per val batch, ms per batch (host clock),
+      detections and mAP@0.5;
+   c. 6c's val images as an MJPG video through ``predict_video`` (640²,
+      batch 32, the bf16 export served in f32): one launch per batch, each
+      frame's detections those of ``predict_image`` on the decoded frame,
+      every frame written; frames/s (host clock);
+   d. the preemption drill: child processes (this script with
+      ``--preempt-child``) train the 6b recipe cut to 2 epochs (SGD, f32,
+      TF32 off, deterministic algorithms): twice uninterrupted; SIGTERM
+      inside step 3's in-flight window, which must exit 143 with the
+      committed step as its cursor; resumed from ``preempt.ckpt``, whose
+      final params, statistics and EMA must equal the uninterrupted run's
+      (rtol 1e-3 / atol 1e-5); the seconds from signal to exit;
+   e. ``tools.analyze`` of yolo-ms-xs at 640² on the card: params and
+      ``FlopCounterMode`` GFLOPs per image.
+
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -66,8 +90,10 @@ for example the parent commit unpacked with ``git archive``) against this
 one on the same inputs, in turns (parent, this, this, parent), after
 phases 1 and 2.
 
-The kernel JSON counts ``select`` launches on both paths: the serving run
-of phase 5 and the training run of phase 6c (``launches_by_path``).
+The kernel JSON counts ``select`` launches on every path
+(``launches_by_path``): the serving run of phase 5, the training run of
+phase 6c, and phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
+runs.
 """
 
 from __future__ import annotations
@@ -75,10 +101,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import glob
 import importlib.util
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -92,6 +120,7 @@ from yolo_ms_tpu_torch.data import native_loader
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.data.decode import decode_and_resize
 from yolo_ms_tpu_torch.infer.predictor import Predictor
+from yolo_ms_tpu_torch.infer.video import predict_video
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
@@ -103,9 +132,14 @@ from yolo_ms_tpu_torch.ops.kernels.select import (
 )
 from yolo_ms_tpu_torch.ops.nms import nms_fixed
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
+from yolo_ms_tpu_torch.tools import export as tools_export
+from yolo_ms_tpu_torch.tools import test as tools_test
+from yolo_ms_tpu_torch.tools import val as tools_val
+from yolo_ms_tpu_torch.tools.analyze import analyze
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer
 from yolo_ms_tpu_torch.train.trainer import Trainer, TrainState, make_train_step
+from yolo_ms_tpu_torch.utils.checkpoint import load_serving_state_dict, restore_checkpoint
 from yolo_ms_tpu_torch.utils.config import Config, TrainingConfig, load_config
 from yolo_ms_tpu_torch.utils.convert import (
     load_npz,
@@ -316,7 +350,7 @@ def _iou(a, b):
     return inter / max(ua, 1e-9)
 
 
-def match_golden(got: list, golden: list) -> None:
+def match_golden(got: list, golden: list, iou_min: float = 0.9, score_tol: float = 0.02) -> None:
     """The rule of tests/test_trained_golden.py: same count; each golden
     detection matched once by class, IoU > 0.9 and score within 0.02."""
     if len(got) != len(golden):
@@ -328,8 +362,8 @@ def match_golden(got: list, golden: list) -> None:
                 d
                 for d in unmatched
                 if d["class_id"] == g["class_id"]
-                and _iou(d["box_xyxy"], g["box_xyxy"]) > 0.9
-                and abs(d["score"] - g["score"]) < 0.02
+                and _iou(d["box_xyxy"], g["box_xyxy"]) > iou_min
+                and abs(d["score"] - g["score"]) < score_tol
             ),
             None,
         )
@@ -550,14 +584,18 @@ FULL_WARMUP = 3  # the recipe's 3000 warmup steps, cut to fit 12 steps
 BF16_LOSS_RTOL = 0.05
 
 
-def make_coco_dataset(*args, **kwargs):
-    """``tests/make_fixtures.make_coco_dataset``, loaded from this checkout
-    (``tests`` is not a package, and another one may be installed)."""
-    path = os.path.join(ROOT, "tests", "make_fixtures.py")
-    spec = importlib.util.spec_from_file_location("make_fixtures", path)
+def _test_module(name: str):
+    """``tests/<name>.py``, loaded from this checkout by path (``tests`` is
+    not a package, and another one may be installed)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.make_coco_dataset(*args, **kwargs)
+    return mod
+
+
+def make_coco_dataset(*args, **kwargs):
+    """``tests/make_fixtures.make_coco_dataset``."""
+    return _test_module("make_fixtures").make_coco_dataset(*args, **kwargs)
 
 
 def _seeded_train_batch(b: int, img: int, nc: int, seed: int) -> dict:
@@ -624,13 +662,11 @@ def _quiet(log_path: str):
         yield
 
 
-def phase_learning(work: str) -> dict:
-    """6b: the JAX package's learning recipe (tests/test_learning.py) through
-    ``Trainer(Config.from_dict(...)).fit()`` on the card, then ``validate``."""
-    root = os.path.join(work, "learn")
-    images, ann = make_coco_dataset(root, num_images=32, num_classes=3, img_w=320,
-                                    img_h=256, seed=1)
-    cfg = Config.from_dict({
+def _learning_config(root: str, name: str, **training) -> Config:
+    """The learning recipe of tests/test_learning.py over the 32 images under
+    ``root``, with ``training`` overriding its training section."""
+    images, ann = os.path.join(root, "images"), os.path.join(root, "annotations.json")
+    return Config.from_dict({
         "dataset": {"train_images_path": images, "train_annotations_path": ann,
                     "val_images_path": images, "val_annotations_path": ann,
                     "num_classes": 3, "max_gt": 8},
@@ -638,15 +674,23 @@ def phase_learning(work: str) -> dict:
         "training": {
             "batch_size": 16, "epochs": LEARN_EPOCHS, "learning_rate": 2e-3,
             "optimizer": "adam", "weight_decay": 0.0, "val_interval": LEARN_EPOCHS,
-            "save_period": 1000, "experiment_name": "learn",
+            "save_period": 1000, "experiment_name": name,
             "log_dir": os.path.join(root, "runs"), "augmentation": {"fliplr": 0.5},
             "grad_clip_norm": 10.0,
             "scheduler": {"type": "cosine", "cosine_t_max": LEARN_EPOCHS, "warmup_steps": 20},
+            **training,
         },
         "evaluation": {"batch_size": 16, "confidence_threshold": 0.25},
         "workers": 4,
     })
-    trainer = Trainer(cfg, verbose=False)
+
+
+def phase_learning(work: str) -> dict:
+    """6b: the JAX package's learning recipe (tests/test_learning.py) through
+    ``Trainer(Config.from_dict(...)).fit()`` on the card, then ``validate``."""
+    root = os.path.join(work, "learn")
+    make_coco_dataset(root, num_images=32, num_classes=3, img_w=320, img_h=256, seed=1)
+    trainer = Trainer(_learning_config(root, "learn"), verbose=False)
     t0 = time.perf_counter()
     with _quiet(os.path.join(root, "fit.log")):
         trainer.fit()
@@ -811,7 +855,8 @@ def phase_full_width(work: str) -> dict:
     return {"launches": launches, "step_ms": med_ms, "img_s": BATCH / med_ms * 1e3,
             "wait_ms": wait_ms, "period_ms": period_ms, "fit_s": fit_s,
             "fit_img_s": fit_img_s, "peak_gib": peak_gib, "val_ms": val_ms,
-            "alone": alone}
+            "alone": alone, "ckpt": ckpt,
+            "data": (root, images, ann, val_images, val_ann)}
 
 
 def step_breakdown(trainer: Trainer, batch: dict, steps: int = 10, profiled: int = 3) -> dict:
@@ -867,6 +912,334 @@ def step_breakdown(trainer: Trainer, batch: dict, steps: int = 10, profiled: int
         "busy_ms": busy_us / 1e3 / profiled, "ranges": ranges,
         "device_ops": device_ops / profiled,
     }
+
+
+# ---------------------------------------------------------------- phase 7
+
+DEVICE = "cuda"  # where phase 7's entry points run
+
+# 7b: the folded f32 export's raw maps against the unfolded EMA model's (f32,
+# TF32 off): the fold changes the summation order only
+EXPORT_MAPS_ATOL = 1e-3
+# 7c: a frame served in a batch of 32 against the same frame alone (f32, TF32
+# off): the same detections up to the summation order of another batch size
+VIDEO_IOU_MIN, VIDEO_SCORE_TOL = 0.99, 1e-3
+# 7d: the resumed run against the uninterrupted one (f32, TF32 off, SGD,
+# deterministic algorithms: without them two uninterrupted runs part by more
+# than this within four steps)
+PREEMPT_TOL = dict(rtol=1e-3, atol=1e-5)
+PREEMPT_EPOCHS = 2  # the learning recipe cut to 2 epochs of 2 steps
+PREEMPT_SNIPE = 2  # SIGTERM while the third step (epoch 1, step 0) is in flight
+
+
+def phase_tools_test(work: str) -> int:
+    """7a: ``tools.test.run`` on the golden yolov8-n, from its weights.npz
+    and from a reference-format .pt made from the same weights in this
+    process (``reference_state_dict`` of tests/test_torch_tools.py): both
+    reproduce the golden detections, with one ``select`` launch per batch."""
+    gdir = GOLDENS[0][1]
+    npz = os.path.join(gdir, "weights.npz")
+    fixture = os.path.join(gdir, "fixture_000.png")
+    pt = os.path.join(work, "yolov8n.pt")
+    torch.save({"model": _test_module("test_torch_tools").reference_state_dict(npz)}, pt)
+    cfg_path = os.path.join(work, "golden_n.json")
+    Config.from_dict({"dataset": {"num_classes": 3}, "device": DEVICE,
+                      "model": {"architecture": "n", "input_size": [160, 160]}}).save(cfg_path)
+    with open(os.path.join(gdir, "fixture_000_detections.json")) as f:
+        golden = json.load(f)
+    total, parts = 0, []
+    for kind, ckpt in (("weights.npz", npz), ("reference .pt", pt)):
+        out_dir = os.path.join(work, "detect_" + kind.split()[-1])
+        select.launches = 0
+        with _quiet(out_dir + ".log"):
+            results = tools_test.run(cfg_path, ckpt, fixture, out_dir)
+        launches = select.launches
+        if launches != 1:
+            raise AssertionError(f"7a {kind}: select launched {launches} times for 1 batch")
+        match_golden(results[fixture], golden)
+        if not os.path.getsize(os.path.join(out_dir, "fixture_000_detected.jpg")):
+            raise AssertionError(f"7a {kind}: no drawn fixture")
+        total += launches
+        parts.append(f"from {kind} {len(results[fixture])} detections match, "
+                     f"{launches} select launch")
+    print("phase 7a tools.test golden yolov8-n 160px on the card: " + "; ".join(parts))
+    return total
+
+
+def phase_export_val(work: str, full: dict) -> dict:
+    """7b: ``tools.export`` of 6c's last.ckpt (its EMA model) to a folded f32
+    and a folded bf16 file; the f32 export's raw maps against the unfolded
+    EMA model's on one batch of val images (TF32 off, EXPORT_MAPS_ATOL); then
+    ``tools.val`` on each export over 6c's 64 val images at 640², batch 32,
+    each a counted run: ``select.launches`` from 0 must reach the number of
+    val batches."""
+    _, _, _, val_images, val_ann = full["data"]
+    exports = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        t0 = time.perf_counter()
+        with _quiet(os.path.join(work, f"export_{name}.log")):
+            info = tools_export.run(full["ckpt"], os.path.join(work, f"export_{name}.ckpt"),
+                                    bf16=bf16)
+        info["seconds"] = time.perf_counter() - t0
+        info["file_mb"] = os.path.getsize(info["output"]) / 1e6
+        exports[name] = info
+
+    paths = sorted(glob.glob(os.path.join(val_images, "*.jpg")))
+    u8 = torch.from_numpy(np.stack([decode_and_resize(p, IMG, IMG) for p in paths[:BATCH]]))
+    unfolded = build_model("yolo-ms-xs", num_classes=NC, device=DEVICE)
+    unfolded.load_state_dict(restore_checkpoint(full["ckpt"])["state"]["ema"], strict=True)
+    folded = build_model("yolo-ms-xs", num_classes=NC, device=DEVICE, deploy=True)
+    folded.load_state_dict(restore_checkpoint(exports["f32"]["output"]), strict=True)
+    with torch.inference_mode(), full_f32():
+        x = _nchw(u8.to(DEVICE))
+        maps_err = max((a - b).abs().max().item() for a, b in zip(folded(x), unfolded(x)))
+    del unfolded, folded, x
+    if not maps_err <= EXPORT_MAPS_ATOL:
+        raise AssertionError(f"7b: folded f32 export's raw maps differ from the EMA model's "
+                             f"by {maps_err}")
+
+    cfg = load_config(COCO_YOLO_MS).to_dict()
+    cfg["dataset"].update(val_images_path=val_images, val_annotations_path=val_ann)
+    cfg["evaluation"].update(batch_size=BATCH, img_size=[IMG, IMG])
+    cfg["device"] = DEVICE
+    cfg_path = os.path.join(work, "val.json")
+    Config.from_dict(cfg).save(cfg_path)
+    val_batches = math.ceil(len(paths) / BATCH)
+    launches, parts = 0, []
+    for name in ("f32", "bf16"):
+        info = exports[name]
+        select.launches = 0
+        t0 = time.perf_counter()
+        result = tools_val.run(cfg_path, info["output"], verbose=False)
+        val_s = time.perf_counter() - t0
+        n = select.launches
+        if n != val_batches:
+            raise AssertionError(f"7b {name}: select launched {n} times for {val_batches} "
+                                 f"val batches")
+        if result["images"] != len(paths):
+            raise AssertionError(f"7b {name}: {result['images']} images validated")
+        launches += n
+        parts.append(
+            f"{name}: {info['params']:,} params, {info['bytes'] / 1e6:.2f} MB of tensors "
+            f"({info['file_mb']:.2f} MB file), exported in {info['seconds']:.2f} s; val "
+            f"{statistics.median(result['batch_ms']):.1f} ms/batch predict_batch (host clock, "
+            f"median of {len(result['batch_ms'])}; all {', '.join(f'{t:.1f}' for t in result['batch_ms'])}),"
+            f" {val_s:.2f} s in all, {result['detections']} detections, mAP@0.5 "
+            f"{result['map_50']:.4f}, select launches {n}")
+    print(f"phase 7b tools.export + tools.val yolo-ms-xs nc={NC} {IMG}px bs={BATCH} from 6c's "
+          f"last.ckpt (EMA), {len(paths)} val images, f32 serving (TF32 off): folded f32 export "
+          f"vs unfolded EMA raw maps max abs err {maps_err:.3e}; " + "; ".join(parts))
+    return {"launches": launches, "bf16": exports["bf16"]["output"]}
+
+
+def phase_video(work: str, full: dict, export_path: str) -> int:
+    """7c: 6c's 64 val images (640x480) as an MJPG .avi through
+    ``predict_video`` at 640², batch 32, from the bf16 export (served in f32,
+    TF32 off, conf 1e-5), a counted run: one ``select`` launch per batch.
+    Every frame's detections match ``predict_image`` on the frame as
+    decoded (VIDEO_IOU_MIN, VIDEO_SCORE_TOL) and the written video has
+    every frame."""
+    import cv2
+
+    _, _, _, val_images, _ = full["data"]
+    paths = sorted(glob.glob(os.path.join(val_images, "*.jpg")))
+    first = cv2.imread(paths[0])
+    src = os.path.join(work, "val.avi")
+    writer = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"MJPG"), 30.0,
+                             (first.shape[1], first.shape[0]))
+    if not writer.isOpened():
+        raise AssertionError("7c: cv2 cannot write MJPG")
+    for p in paths:
+        writer.write(cv2.imread(p))
+    writer.release()
+
+    predictor = Predictor("yolo-ms-xs", load_serving_state_dict(export_path), num_classes=NC,
+                          input_size=(IMG, IMG), conf_thresh=1e-5, batch_size=BATCH,
+                          device=DEVICE)
+    predictor.predict_batch(np.zeros((BATCH, IMG, IMG, 3), np.uint8))  # warm-up
+    out = os.path.join(work, "detected.mp4")
+    select.launches = 0
+    t0 = time.perf_counter()
+    with _quiet(os.path.join(work, "video.log")):
+        dets = predict_video(predictor, src, out)
+    video_s = time.perf_counter() - t0
+    launches = select.launches
+    if launches != math.ceil(len(paths) / BATCH):
+        raise AssertionError(f"7c: select launched {launches} times for {len(paths)} frames "
+                             f"in batches of {BATCH}")
+
+    def frames_of(path):
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while True:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+        cap.release()
+        return frames
+
+    frames = frames_of(src)
+    if not len(dets) == len(frames) == len(paths):
+        raise AssertionError(f"7c: {len(dets)} frames served, {len(frames)} decoded, "
+                             f"{len(paths)} written")
+    exact = n_dets = 0
+    for got, rgb in zip(dets, frames):
+        want = predictor.predict_image(rgb)
+        n_dets += len(want)
+        if got == want:
+            exact += 1
+        else:
+            match_golden(got, want, VIDEO_IOU_MIN, VIDEO_SCORE_TOL)
+    if n_dets == 0:
+        raise AssertionError("7c: no detections to compare")
+    written = len(frames_of(out))
+    if written != len(paths):
+        raise AssertionError(f"7c: the written video has {written} frames")
+    print(f"phase 7c predict_video yolo-ms-xs bf16 export (f32 serving, TF32 off) {IMG}px "
+          f"bs={BATCH} conf 1e-5, {len(paths)} MJPG frames 640x480: {len(paths) / video_s:.1f} "
+          f"frames/s (host clock, {video_s:.2f} s: decode, resize, serve, draw and encode); "
+          f"select launches {launches}; {n_dets} detections, every frame matches predict_image "
+          f"on the decoded frame ({exact} of {len(frames)} exactly equal); written video "
+          f"{written} frames")
+    return launches
+
+
+def preempt_child(root: str, exp: str, snipe: str, ckpt: str | None = None) -> int:
+    """One run of the 7d drill (``chip_smoke.py --preempt-child ...``): the
+    learning recipe cut to PREEMPT_EPOCHS epochs, SGD, f32 with TF32 off and
+    PyTorch's deterministic algorithms (warning where an op has none), on
+    the card; with ``snipe`` >= 0 it sends itself SIGTERM while that step is
+    in flight; with ``ckpt`` it resumes from it. A run that ends writes its
+    final state beside the data."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = _learning_config(root, exp, epochs=PREEMPT_EPOCHS, optimizer="sgd",
+                           learning_rate=0.01, weight_decay=5e-4, ema_decay=0.9999,
+                           val_interval=1000,
+                           scheduler={"type": "cosine", "cosine_t_max": PREEMPT_EPOCHS})
+    trainer = Trainer(cfg, verbose=False, device=DEVICE)
+    if ckpt:
+        trainer.resume(ckpt)
+    steps = [trainer.start_epoch * len(trainer.train_loader) + trainer.start_step]
+    inner = trainer._train_step
+
+    def step(state, batch):
+        metrics = inner(state, batch)
+        if steps[0] == int(snipe):
+            print(f"SIGNAL_AT {time.time():.6f}", file=sys.stderr, flush=True)
+            os.kill(os.getpid(), signal.SIGTERM)
+            if not (trainer._preempt_signum == signal.SIGTERM and trainer._step_active):
+                raise AssertionError("7d: the signal was not deferred")
+        steps[0] += 1
+        return metrics
+
+    trainer._train_step = step
+    with _quiet(os.path.join(root, exp + ".log")):
+        trainer.fit()
+    torch.save(trainer.state.state_dict(), os.path.join(root, exp + "_final.pt"))
+    return 0
+
+
+def phase_preempt(work: str) -> None:
+    """7d: child processes on the card: U and U2 uninterrupted, P with
+    SIGTERM inside step PREEMPT_SNIPE's in-flight window (the three side by
+    side), then R resumed from P's preempt.ckpt. P exits 143 with the
+    committed step as its cursor; R's final params, statistics and EMA
+    equal U's within PREEMPT_TOL. U2 against U shows how far two runs of
+    the same recipe part on the card."""
+    root = os.path.join(work, "learn")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")  # deterministic cuBLAS
+
+    def start(exp, snipe=-1, *extra):
+        log = open(os.path.join(root, exp + ".out"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--preempt-child", root, exp,
+             str(snipe), *extra], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        return proc
+
+    def wait(procs, timeout=300):
+        """Exit code and host-clock exit time of each process."""
+        ended, deadline = {}, time.time() + timeout
+        try:
+            while len(ended) < len(procs):
+                if time.time() > deadline:
+                    raise AssertionError("7d: a child process did not end")
+                for name, p in procs.items():
+                    if name not in ended and p.poll() is not None:
+                        ended[name] = (p.returncode, time.time())
+                time.sleep(0.01)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return ended
+
+    def output(exp):
+        with open(os.path.join(root, exp + ".out")) as f:
+            return f.read()
+
+    t0 = time.perf_counter()
+    ended = wait({"u": start("pre_u"), "u2": start("pre_u2"), "p": start("pre_p", PREEMPT_SNIPE)})
+    term = 128 + signal.SIGTERM
+    if ended["u"][0] != 0 or ended["u2"][0] != 0 or ended["p"][0] != term:
+        raise AssertionError(f"7d: exit codes U {ended['u'][0]}, U2 {ended['u2'][0]}, P "
+                             f"{ended['p'][0]} (want 0, 0, {term})\n{output('pre_u')[-3000:]}\n"
+                             f"{output('pre_p')[-3000:]}")
+    signal_at = next(float(ln.split()[1]) for ln in output("pre_p").splitlines()
+                     if ln.startswith("SIGNAL_AT"))
+    exit_s = ended["p"][1] - signal_at
+    ckpt = os.path.join(root, "runs", "pre_p", "weights", "preempt.ckpt")
+    restored = restore_checkpoint(ckpt)
+    cursor = (restored["epoch"], restored["step_in_epoch"], restored["state"]["step"])
+    if cursor != (1, 1, PREEMPT_SNIPE + 1):
+        raise AssertionError(f"7d: preempt.ckpt cursor (epoch, step in epoch, steps) {cursor}")
+    ended = wait({"r": start("pre_r", -1, ckpt)})
+    if ended["r"][0] != 0:
+        raise AssertionError(f"7d: resumed run exit {ended['r'][0]}\n{output('pre_r')[-3000:]}")
+    drill_s = time.perf_counter() - t0
+    final = {e: torch.load(os.path.join(root, f"pre_{e}_final.pt"), weights_only=True)
+             for e in ("u", "u2", "r")}
+    want = final["u"]
+
+    def compare(got, check):
+        if got["step"] != want["step"]:
+            raise AssertionError(f"7d: {got['step']} steps vs {want['step']}")
+        worst = 0.0
+        for part in ("model", "ema"):
+            for k, v in want[part].items():
+                if not v.is_floating_point():
+                    continue
+                err = (got[part][k] - v).abs().max().item()
+                if check and not torch.allclose(got[part][k], v, **PREEMPT_TOL):
+                    raise AssertionError(f"7d: resumed {part} {k} differs by {err}")
+                worst = max(worst, err)
+        return worst
+
+    repeat = compare(final["u2"], check=False)
+    worst = compare(final["r"], check=True)
+    nondet = sorted({ln.split(" does not have a deterministic")[0].split()[-1]
+                     for e in ("pre_u", "pre_u2", "pre_p", "pre_r") for ln in output(e).splitlines()
+                     if "does not have a deterministic implementation" in ln})
+    print(f"phase 7d preemption drill, learning recipe cut to {PREEMPT_EPOCHS} epochs x 2 steps, "
+          f"SGD f32 (TF32 off, deterministic algorithms), 4 child processes on the card: "
+          f"SIGTERM inside step {PREEMPT_SNIPE + 1}'s in-flight window -> exit {term}, "
+          f"preempt.ckpt at epoch 1 step 1 ({PREEMPT_SNIPE + 1} steps committed), {exit_s:.3f} s "
+          f"from signal to exit (host clock); resumed final params/statistics/EMA == "
+          f"uninterrupted, max abs err {worst:.3e} (two uninterrupted runs: {repeat:.3e}); ops "
+          f"without a deterministic implementation: {', '.join(nondet) or 'none'}; drill "
+          f"{drill_s:.1f} s")
+
+
+def phase_analyze(work: str) -> None:
+    """7e: ``tools.analyze`` of yolo-ms-xs at 640² on the card."""
+    with _quiet(os.path.join(work, "analyze.log")):
+        info = analyze("yolo-ms-xs", num_classes=NC, img_size=IMG, device=DEVICE)
+    stages = ", ".join(f"{k} {v:,}" for k, v in info["stage_params"].items())
+    print(f"phase 7e analyze yolo-ms-xs nc={NC} {IMG}px on the card: {info['params']:,} params "
+          f"({stages}), {info['flops'] / 1e9:.2f} GFLOPs/image (FlopCounterMode: 2 x MACs of "
+          f"convs and matmuls only), {info['anchors']:,} anchors, staged == full")
 
 
 def _load_select_of(checkout: str):
@@ -929,10 +1302,13 @@ def phase_parent_ab(parent: str, flush: torch.Tensor, name: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
+    parser.add_argument("--preempt-child", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.preempt_child:
+        return preempt_child(*args.preempt_child)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -992,6 +1368,12 @@ def main() -> int:
         phase_step_parity()
         phase_learning(work)
         full = phase_full_width(work)
+        tools = {"tools_test": phase_tools_test(work)}
+        export_val = phase_export_val(work, full)
+        tools["tools_val"] = export_val["launches"]
+        tools["video"] = phase_video(work, full, export_val["bf16"])
+        phase_preempt(work)
+        phase_analyze(work)
 
     # one batch of the flagship, one launch
     sel = runs[0]["select"]
@@ -1003,8 +1385,9 @@ def main() -> int:
         "route": "cuda",
         "source": "yolo_ms_tpu_torch/csrc/select.cu",
         "replaces": "yolo_ms_tpu/ops/pallas/select.py:56",
-        "launches": serve_launches + full["launches"],
-        "launches_by_path": {"serve": serve_launches, "train_validate": full["launches"]},
+        "launches": serve_launches + full["launches"] + sum(tools.values()),
+        "launches_by_path": {"serve": serve_launches, "train_validate": full["launches"],
+                             **tools},
         "max_abs_err": worst,
         "ms": sel["ms"],
         "plain_ms": sel["plain_ms"],

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``yolo_ms_tpu_torch``, and ``chip_smoke`` as a module, loads no jax, flax,
-triton or ``yolo_ms_tpu`` module (checked in a fresh interpreter)."""
+triton or ``yolo_ms_tpu`` module, and no matplotlib (``tools/visualize.py``
+imports it when it runs), checked in a fresh interpreter."""
 
 import json
 import os
@@ -20,7 +21,7 @@ for name in names:
 import chip_smoke
 banned = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "yolo_ms_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "yolo_ms_tpu", "matplotlib")
 )
 print(json.dumps({"imported": names, "banned": banned}))
 """
@@ -56,5 +57,14 @@ def test_port_imports_no_jax_flax_triton_or_jax_package():
         "yolo_ms_tpu_torch.data.native_loader",
         "yolo_ms_tpu_torch.infer.predictor",
         "yolo_ms_tpu_torch.utils.convert",
+        "yolo_ms_tpu_torch.utils.checkpoint",
+        "yolo_ms_tpu_torch.utils.profiler",
+        "yolo_ms_tpu_torch.train.trainer",
+        "yolo_ms_tpu_torch.infer.video",
+        "yolo_ms_tpu_torch.tools.test",
+        "yolo_ms_tpu_torch.tools.val",
+        "yolo_ms_tpu_torch.tools.export",
+        "yolo_ms_tpu_torch.tools.analyze",
+        "yolo_ms_tpu_torch.tools.visualize",
     }
     assert expected <= set(result["imported"])

@@ -435,9 +435,15 @@ def test_pretrained_npz_and_checkpoint_merge(coco, tmp_path):
     dst2 = Trainer(_cfg(coco, "dst2", pretrained_weights=ckpt), verbose=False)
     assert torch.equal(dst2.state.params, src.state.params)
     assert torch.equal(dst2.state.ema_params, src.state.params)  # EMA starts at the weights
-    with pytest.raises(NotImplementedError):
-        open(str(tmp_path / "ref.pt"), "wb").close()
-        Trainer(_cfg(coco, "dst3", pretrained_weights=str(tmp_path / "ref.pt")), verbose=False)
+    # a reference-format .pt goes through the key mapping (utils/checkpoint.py)
+    from tests.test_torch_tools import reference_state_dict
+
+    pt = str(tmp_path / "ref.pt")
+    torch.save({"model": reference_state_dict(npz)}, pt)
+    dst3 = Trainer(_cfg(coco, "dst3", pretrained_weights=pt), verbose=False)
+    got = dst3.state.model.state_dict()
+    assert torch.equal(got["backbone.conv0.conv.weight"], want["backbone.conv0.conv.weight"])
+    assert not torch.equal(got["head.cls_0.pred.bias"], torch.zeros(2))  # kept its own
 
 
 def test_mean_average_precision_equals_jax():

@@ -353,10 +353,13 @@ class DetectionLoader:
                 yield item
         finally:
             stop.set()
+            # drop the samples not started yet (the producer's pool.map then
+            # raises CancelledError, which it hands to the queue), so closing
+            # waits only for the samples in progress
+            pool.shutdown(wait=False, cancel_futures=True)
             # unblock a worker waiting on a full queue, then let it finish
             while t.is_alive():
                 try:
                     q.get_nowait()
                 except queue.Empty:
                     t.join(0.05)
-            pool.shutdown(wait=False)

@@ -19,7 +19,9 @@ iou_thresholds=[0.5]). Protocol (pycocotools COCOeval semantics):
   the reference's 'Validation/mAP_50' scalar (train.py:407).
 
 Accumulation is update()/compute() like torchmetrics so the validation loop
-shape matches the reference's (train.py:146,152). The matching is grouped
+shape matches the reference's (train.py:146,152). ``map_iou_thresholds``
+and ``update_from_batch`` are the port's: the config setting and the padded
+val batch, as ``Trainer.validate`` and ``tools/val.py`` both feed them. The matching is grouped
 and array-wise — no dataset-wide per-detection Python loop — so COCO
 val2017-scale evaluation (~5k images) completes in seconds.
 """
@@ -218,3 +220,45 @@ class MeanAveragePrecision:
         if 0.75 in thr:
             result["map_75"] = float(stack[:, thr.index(0.75)].mean())
         return result
+
+
+def map_iou_thresholds(setting) -> list[float]:
+    """``evaluation.map_iou_thresholds`` -> IoU thresholds: a list as it is,
+    or the preset ``"coco"`` (0.50:0.05:0.95); 0.5 is added when missing,
+    since validation returns mAP@0.5."""
+    thresholds = setting
+    if isinstance(thresholds, str):
+        if thresholds.lower() != "coco":
+            raise ValueError(f"map_iou_thresholds: unknown preset {thresholds!r}")
+        thresholds = [0.5 + 0.05 * i for i in range(10)]
+    if 0.5 not in [round(float(t), 2) for t in thresholds]:
+        thresholds = [0.5] + list(thresholds)
+    return list(thresholds)
+
+
+def update_from_batch(metric: MeanAveragePrecision, out: dict, batch: dict,
+                      img_hw: tuple[int, int]) -> int:
+    """Add the first ``batch["num_valid"]`` rows of a padded val batch: the
+    post-process outputs ``out`` (host numpy ``boxes`` / ``scores`` /
+    ``classes`` / ``valid``) against the batch's targets (normalized cx, cy,
+    w, h, scaled to ``img_hw`` pixels). Returns the detections added."""
+    ih, iw = img_hw
+    scale = np.asarray([iw, ih, iw, ih], np.float32)
+    preds, targets, n_dets = [], [], 0
+    for i in range(batch["num_valid"]):
+        valid = out["valid"][i]
+        preds.append({
+            "boxes": out["boxes"][i][valid],
+            "scores": out["scores"][i][valid],
+            "labels": out["classes"][i][valid],
+        })
+        m = batch["mask"][i]
+        gt = batch["boxes"][i][m] * scale
+        half = gt[:, 2:4] / 2.0
+        targets.append({
+            "boxes": np.concatenate([gt[:, :2] - half, gt[:, :2] + half], axis=-1),
+            "labels": batch["labels"][i][m],
+        })
+        n_dets += int(valid.sum())
+    metric.update(preds, targets)
+    return n_dets

@@ -25,9 +25,15 @@ f32 tensor, the running statistics into another, so that the optimizer,
 the guard and the EMA each touch a handful of tensors whatever the number
 of layers.
 
-Not in this slice: the SIGTERM-deferred preemption save, the multi-process
-mesh (``_globalize``, ``_run_synced``, sharded validation) and loading
-reference ``.pt`` weights.
+SIGTERM / SIGINT during ``fit`` save ``weights/preempt.ckpt`` (the full
+state and the cursor of committed steps) and exit with 128 + the signal's
+number. A signal that lands while a train step is being enqueued is
+deferred to the step's commit point; ``resume`` continues from the file.
+Pretrained weights may be a reference ``.pt`` file (mapped by
+``utils/checkpoint.py``), a flax-layout ``.npz`` or a port checkpoint.
+
+Not in this slice: the multi-process mesh (``_globalize``, ``_run_synced``,
+sharded validation) and its preemption drain.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -45,16 +53,24 @@ from torch.profiler import record_function
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.data.coco import CocoDetectionDataset
 from yolo_ms_tpu_torch.data.loader import DetectionLoader
-from yolo_ms_tpu_torch.eval.coco_map import MeanAveragePrecision
+from yolo_ms_tpu_torch.eval.coco_map import (
+    MeanAveragePrecision,
+    map_iou_thresholds,
+    update_from_batch,
+)
 from yolo_ms_tpu_torch.models.registry import build_model, init_model
-from yolo_ms_tpu_torch.ops.iou import xywh_to_xyxy
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer, freeze_mask
-from yolo_ms_tpu_torch.utils.checkpoint import CheckpointManager, restore_checkpoint
+from yolo_ms_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    load_torch_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from yolo_ms_tpu_torch.utils.config import Config
 from yolo_ms_tpu_torch.utils.convert import flax_param_path, load_npz
-from yolo_ms_tpu_torch.utils.device import full_f32, resolve_device
+from yolo_ms_tpu_torch.utils.device import config_device, full_f32, resolve_device
 from yolo_ms_tpu_torch.utils.logging import MetricLogger
 
 BATCH_KEYS = ("images", "boxes", "labels", "mask")
@@ -226,9 +242,7 @@ class Trainer:
     def __init__(self, cfg: Config, verbose: bool = True, device=None):
         self.cfg = cfg
         self.verbose = verbose
-        if device is None and str(cfg.device).lower() == "cpu":
-            device = "cpu"
-        self.device = resolve_device(device)
+        self.device = resolve_device(config_device(cfg, device))
         mcfg, dcfg, tcfg = cfg.model, cfg.dataset, cfg.training
         self.img_size = tuple(mcfg.input_size)
         self.compute_dtype = (
@@ -322,6 +336,15 @@ class Trainer:
         )
         self.start_epoch = 0
         self.start_step = 0
+        # (epoch, steps committed in it): one tuple stored in one STORE_ATTR,
+        # so the signal handler (which runs between bytecodes on this same
+        # thread) never sees a half-updated pair
+        self._cursor = (0, 0)
+        # True exactly while a train step is being enqueued: its in-place
+        # commits of params, statistics, moments and EMA are not all queued
+        # yet, so the handler defers the save to the loop's commit point
+        self._step_active = False
+        self._preempt_signum: int | None = None
         self._gt_buckets: tuple[int, ...] = tuple(
             sorted(b for b in (dcfg.gt_buckets or []) if 0 < b < dcfg.max_gt)
         )
@@ -349,10 +372,8 @@ class Trainer:
                 print(f"Warning: pretrained weights not found: {path}")
                 continue
             if path.endswith((".pt", ".pth")):
-                raise NotImplementedError(
-                    f"{path}: reference .pt weights are not loadable by the port yet"
-                )
-            if path.endswith(".npz"):
+                loaded = load_torch_checkpoint(path)
+            elif path.endswith(".npz"):
                 loaded = load_npz(path)
             else:
                 loaded = restore_checkpoint(path)
@@ -411,16 +432,8 @@ class Trainer:
         "coco"`` also computes AP@[.50:.05:.95]; the returned metric stays
         mAP@0.5."""
         assert self.val_loader is not None, "no validation dataset configured"
-        thresholds = self.cfg.evaluation.map_iou_thresholds
-        if isinstance(thresholds, str):
-            if thresholds.lower() != "coco":
-                raise ValueError(f"map_iou_thresholds: unknown preset {thresholds!r}")
-            thresholds = [0.5 + 0.05 * i for i in range(10)]
-        if 0.5 not in [round(float(t), 2) for t in thresholds]:
-            thresholds = [0.5] + list(thresholds)
+        thresholds = map_iou_thresholds(self.cfg.evaluation.map_iou_thresholds)
         metric = MeanAveragePrecision(iou_thresholds=thresholds)
-        img_h, img_w = self.img_size
-        scale = np.asarray([img_w, img_h, img_w, img_h], np.float32)
         n_images = total_dets = 0
         model = self.state.ema if self.state.ema is not None else self.state.model
         was_training = model.training
@@ -428,24 +441,8 @@ class Trainer:
         try:
             for batch in self.val_loader.epoch(0):
                 out = self._infer(model, batch["images"])
-                nv = batch["num_valid"]
-                preds, targets = [], []
-                for i in range(nv):
-                    valid = out["valid"][i]
-                    preds.append({
-                        "boxes": out["boxes"][i][valid],
-                        "scores": out["scores"][i][valid],
-                        "labels": out["classes"][i][valid],
-                    })
-                    m = batch["mask"][i]
-                    gt = torch.from_numpy(batch["boxes"][i][m] * scale)
-                    targets.append({
-                        "boxes": xywh_to_xyxy(gt).numpy(),
-                        "labels": batch["labels"][i][m],
-                    })
-                    total_dets += int(valid.sum())
-                metric.update(preds, targets)
-                n_images += nv
+                total_dets += update_from_batch(metric, out, batch, self.img_size)
+                n_images += batch["num_valid"]
         finally:
             model.train(was_training)
         result = metric.compute()
@@ -485,24 +482,94 @@ class Trainer:
             self.start_epoch = int(restored["epoch"]) + 1
             self.start_step = 0
 
+    def _save_preempt_and_exit(self, signum: int):
+        """Save ``preempt.ckpt`` with the committed state and cursor, then
+        exit 128 + signum. The card is synchronized first, so the file holds
+        every queued commit."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        path = os.path.join(self.ckpt.dir, "preempt.ckpt")
+        print(f"\nSignal {signum}: saving preemption checkpoint to {path}", flush=True)
+        epoch, step = self._cursor
+        if step == 0:
+            # resume() reads step_in_epoch == 0 as "epoch complete, start the
+            # next one" (the end-of-epoch checkpoint format). A preemption
+            # before the first commit of epoch E must restart E from its
+            # top: encode that as "epoch E-1 complete".
+            epoch -= 1
+        # the loader is a pure function of (seed, epoch, index): exact
+        # mid-epoch resume
+        save_checkpoint(path, self.checkpoint(epoch, step))
+        raise SystemExit(128 + signum)
+
+    def _install_preemption_handler(self) -> dict:
+        """Save a full-state checkpoint on SIGTERM / SIGINT, then exit
+        128 + signum. Returns the handlers it replaced.
+
+        Two paths:
+
+        - idle (no train step being enqueued): the handler saves directly;
+          the state is the last committed one.
+        - a step in flight: ``_train_step`` enqueues in-place commits on the
+          flat params, statistics, moments and EMA, so a save in the middle
+          of that call would write a half-committed state. The handler only
+          records the signal; ``fit`` saves at the commit point, with the
+          cursor counting the step.
+
+        A watchdog (``YOLO_MS_PREEMPT_GRACE_S`` seconds, default 60) armed
+        at signal time hard-exits with the same code if the save does not
+        finish. Off the main thread ``signal.signal`` raises ``ValueError``
+        and no handler is installed."""
+        grace = float(os.environ.get("YOLO_MS_PREEMPT_GRACE_S", "60"))
+
+        def handler(signum, frame):
+            w = threading.Timer(grace, lambda: os._exit(128 + signum))
+            w.daemon = True
+            w.start()
+            self._preempt_signum = signum
+            if self._step_active:
+                return  # defer: fit commits the step in flight, then saves
+            self._save_preempt_and_exit(signum)
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:
+                pass  # not in the main thread
+        return previous
+
     def fit(self) -> None:
         assert self.train_loader is not None, "no training dataset configured"
         tcfg = self.cfg.training
         steps_per_epoch = len(self.train_loader)
         self.data_wait_s = []
+        self._cursor = (self.start_epoch, self.start_step)
+        previous = self._install_preemption_handler()
         print(f"Starting training for {tcfg.epochs} epochs ({steps_per_epoch} steps/epoch)")
+        try:
+            for epoch in range(self.start_epoch, tcfg.epochs):
+                first_step = self.start_step if epoch == self.start_epoch else 0
+                self._cursor = (epoch, first_step)
+                self._fit_epoch(epoch, first_step, steps_per_epoch)
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, h)
+        self.logger.close()
+        print("Training finished.")
 
-        for epoch in range(self.start_epoch, tcfg.epochs):
-            first_step = self.start_step if epoch == self.start_epoch else 0
-            t0 = time.time()
-            # state.step counts train-step calls; the schedule counts
-            # applied updates
-            count = torch.tensor(int(self.state.step) // self.accum)
-            lr = float(self.lr_schedule(count))
-            self.logger.scalar("Training/Learning_Rate", lr, epoch)
-            step_losses = []
-            batches = self.train_loader.epoch(epoch, start_step=first_step)
-            batch_idx = first_step
+    def _fit_epoch(self, epoch: int, first_step: int, steps_per_epoch: int) -> None:
+        tcfg = self.cfg.training
+        t0 = time.time()
+        # state.step counts train-step calls; the schedule counts applied
+        # updates
+        count = torch.tensor(int(self.state.step) // self.accum)
+        lr = float(self.lr_schedule(count))
+        self.logger.scalar("Training/Learning_Rate", lr, epoch)
+        step_losses = []
+        batches = self.train_loader.epoch(epoch, start_step=first_step)
+        batch_idx = first_step
+        try:
             while True:
                 tw = time.perf_counter()
                 batch = next(batches, None)
@@ -511,7 +578,16 @@ class Trainer:
                     self.data_wait_s.pop()
                     break
                 dev_batch = self._to_device(self._bucket_gt(batch))
-                metrics = self._train_step(self.state, dev_batch)
+                # in-flight window: a signal landing here is deferred to the
+                # commit point below (see _install_preemption_handler)
+                self._step_active = True
+                try:
+                    metrics = self._train_step(self.state, dev_batch)
+                    self._cursor = (epoch, batch_idx + 1)
+                finally:
+                    self._step_active = False
+                if self._preempt_signum is not None:
+                    self._save_preempt_and_exit(self._preempt_signum)
                 step_losses.append(metrics["total_loss"])
                 gstep = epoch * steps_per_epoch + batch_idx
                 if (batch_idx + 1) % 10 == 0 or batch_idx == 0:
@@ -526,24 +602,25 @@ class Trainer:
                     self.logger.scalar("Loss/Batch/Cls", m["loss_cls"], gstep)
                     self.logger.scalar("Loss/Batch/DFL", m["loss_dfl"], gstep)
                 batch_idx += 1
+        finally:
+            # stop the loader's threads now, not when the generator is
+            # collected: an exit must not wait on them
+            batches.close()
 
-            avg_loss = float(torch.stack(step_losses).mean()) if step_losses else 0.0
-            self.logger.scalar("Loss/Epoch/Total", avg_loss, epoch)
-            print(
-                f"Epoch {epoch + 1}/{tcfg.epochs}: avg loss {avg_loss:.4f}, "
-                f"{time.time() - t0:.1f}s"
-            )
+        avg_loss = float(torch.stack(step_losses).mean()) if step_losses else 0.0
+        self.logger.scalar("Loss/Epoch/Total", avg_loss, epoch)
+        print(
+            f"Epoch {epoch + 1}/{tcfg.epochs}: avg loss {avg_loss:.4f}, "
+            f"{time.time() - t0:.1f}s"
+        )
 
-            val_metric = None
-            if self.val_loader is not None and (epoch + 1) % tcfg.val_interval == 0:
-                val_metric = self.validate(epoch + 1)
-                self.logger.scalar("Validation/mAP_50", val_metric, epoch)
+        val_metric = None
+        if self.val_loader is not None and (epoch + 1) % tcfg.val_interval == 0:
+            val_metric = self.validate(epoch + 1)
+            self.logger.scalar("Validation/mAP_50", val_metric, epoch)
 
-            if self.ckpt.on_epoch_end(self.checkpoint(epoch, 0), epoch, val_metric):
-                print(f"New best mAP@0.5: {val_metric:.4f}")
-
-        self.logger.close()
-        print("Training finished.")
+        if self.ckpt.on_epoch_end(self.checkpoint(epoch, 0), epoch, val_metric):
+            print(f"New best mAP@0.5: {val_metric:.4f}")
 
 
 @torch.no_grad()

@@ -25,6 +25,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def config_device(cfg, device=None):
+    """The device an entry point given a ``Config`` runs on: ``device`` if
+    the caller names one, else the CPU when the config says ``device:
+    "cpu"``, else the card (``None`` for ``resolve_device``)."""
+    if device is None and str(cfg.device).lower() == "cpu":
+        return "cpu"
+    return device
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run f32 matmuls and cuDNN convs in IEEE f32 (no TF32) inside the block.
