@@ -79,6 +79,36 @@ that fails, and without a card. Phases, each printing one line:
       (rtol 1e-3 / atol 1e-5); the seconds from signal to exit;
    e. ``tools.analyze`` of yolo-ms-xs at 640² on the card: params and
       ``FlopCounterMode`` GFLOPs per image.
+8. data-parallel training, each rank a child process (this script with
+   ``--dp-child``) started with torchrun's variables, so the port's own
+   ``maybe_initialize_distributed`` runs; two ranks share the one card over
+   ``gloo`` (NCCL refuses two ranks on one device):
+   a. 6a's recipe for 3 steps in two ranks x 4 rows (deterministic
+      algorithms) against one process x 8: loss terms within rtol 1e-4,
+      params, statistics and EMA within rtol 1e-3 / atol 1e-5 after each
+      step, the ranks' states bitwise equal; a NaN pixel in rank 1's rows
+      makes both ranks skip the step; then 6b's trained checkpoint validated
+      in the two ranks (the val feed sharded, the detections gathered)
+      against one process: the same detection count, mAP@0.5 within 1e-6,
+      one ``select`` launch per val batch per rank;
+   b. 6c's recipe and cut at global batch 32 = 2 ranks x 16, 6 steps, then
+      the sharded validation of 6c's 64 val images: every step finite, none
+      skipped, positives in each, the first step's loss within rtol 1e-2 of
+      the one-process step on the same global batch, the ranks bitwise
+      equal at the end, the same mAP on both (near 0 after 6 steps: 8a
+      holds the sharded validation against one process), one ``select`` launch per val
+      batch per rank (counts set to 0 just before the fit), files from rank
+      0 only; it prints the step time (CUDA events) beside 6c's, the
+      end-to-end rate, the gradient and BatchNorm all-reduces replayed alone
+      at the step's sizes, and the peak memory of each rank;
+   c. 7d's drill in two ranks: SIGTERM to both inside step 3's in-flight
+      window; both exit 143, only rank 0 wrote ``preempt.ckpt``, and a
+      two-rank resume equals the uninterrupted two-rank run; the seconds
+      from signal to exit of each rank;
+   d. NCCL: 8a over ``nccl``, one rank per card, on a host with two or more
+      cards; on one card, the port's refusal of a second rank (before
+      init) and a one-rank
+      ``nccl`` group (init, one all-reduce, one train step).
 
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -92,8 +122,9 @@ phases 1 and 2.
 
 The kernel JSON counts ``select`` launches on every path
 (``launches_by_path``): the serving run of phase 5, the training run of
-phase 6c, and phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
-runs.
+phase 6c, phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
+runs, and phase 8b's data-parallel validation (``train_dp_validate``, both
+ranks' launches).
 """
 
 from __future__ import annotations
@@ -107,6 +138,7 @@ import json
 import math
 import os
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -123,6 +155,7 @@ from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.infer.video import predict_video
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model
+from yolo_ms_tpu_torch.nn.blocks import BatchNorm2d, set_batch_norm_group
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
 from yolo_ms_tpu_torch.ops.kernels.select import (
     select,
@@ -132,6 +165,16 @@ from yolo_ms_tpu_torch.ops.kernels.select import (
 )
 from yolo_ms_tpu_torch.ops.nms import nms_fixed
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
+from yolo_ms_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+    data_parallel_group,
+    get_rank,
+    leave_group,
+    maybe_initialize_distributed,
+    rank_device,
+    world_size,
+)
+from yolo_ms_tpu_torch.parallel.mesh import shard_batch
 from yolo_ms_tpu_torch.tools import export as tools_export
 from yolo_ms_tpu_torch.tools import test as tools_test
 from yolo_ms_tpu_torch.tools import val as tools_val
@@ -612,17 +655,25 @@ def _seeded_train_batch(b: int, img: int, nc: int, seed: int) -> dict:
     }
 
 
-def _one_train_step(device: str, state_dict: dict, batch: dict):
-    """One f32 train step of yolov8-n (nc=3) from ``state_dict``, with
-    SGD-nesterov, weight decay, clipping and EMA (its ramp at step 4000)."""
+def _sgd_state(device, state_dict: dict, group=None):
+    """yolov8-n (nc=3) from ``state_dict`` with 6a's recipe, SGD-nesterov,
+    weight decay, clipping and EMA (its ramp at step 4000): the state and
+    the f32 step, data parallel over ``group`` when one is given."""
     model = build_model("n", num_classes=3, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     cfg = TrainingConfig(batch_size=8, epochs=1, optimizer="sgd", learning_rate=0.01,
                          weight_decay=5e-4, grad_clip_norm=10.0, ema_decay=0.9999)
     tx, _ = build_optimizer(cfg, 4)
     state = TrainState.create(model.to(device), tx, ema=True)
+    set_batch_norm_group(state.model, group)
     state.step.fill_(4000)
-    step = make_train_step(DetectionLoss(num_classes=3), tx, cfg.ema_decay, torch.float32)
+    return state, make_train_step(DetectionLoss(num_classes=3, group=group), tx, cfg.ema_decay,
+                                  torch.float32, group)
+
+
+def _one_train_step(device: str, state_dict: dict, batch: dict):
+    """One f32 train step of 6a's recipe from ``state_dict``."""
+    state, step = _sgd_state(device, state_dict)
     metrics = step(state, {k: v.to(device) for k, v in batch.items()})
     return {k: float(v) for k, v in metrics.items()}, state
 
@@ -1113,10 +1164,14 @@ def preempt_child(root: str, exp: str, snipe: str, ckpt: str | None = None) -> i
     in flight; with ``ckpt`` it resumes from it. A run that ends writes its
     final state beside the data."""
     torch.use_deterministic_algorithms(True, warn_only=True)
+    rank, ranked = get_rank(), world_size() > 1
+    # under data parallelism (8c) each rank logs under its own directory, so
+    # that what rank 1 writes shows (nothing)
+    extra = {"log_dir": os.path.join(root, f"runs_rank{rank}")} if ranked else {}
     cfg = _learning_config(root, exp, epochs=PREEMPT_EPOCHS, optimizer="sgd",
                            learning_rate=0.01, weight_decay=5e-4, ema_decay=0.9999,
                            val_interval=1000,
-                           scheduler={"type": "cosine", "cosine_t_max": PREEMPT_EPOCHS})
+                           scheduler={"type": "cosine", "cosine_t_max": PREEMPT_EPOCHS}, **extra)
     trainer = Trainer(cfg, verbose=False, device=DEVICE)
     if ckpt:
         trainer.resume(ckpt)
@@ -1134,10 +1189,31 @@ def preempt_child(root: str, exp: str, snipe: str, ckpt: str | None = None) -> i
         return metrics
 
     trainer._train_step = step
-    with _quiet(os.path.join(root, exp + ".log")):
+    tag = exp + (f"_rank{rank}" if ranked else "")
+    with _quiet(os.path.join(root, tag + ".log")):
         trainer.fit()
-    torch.save(trainer.state.state_dict(), os.path.join(root, exp + "_final.pt"))
+    torch.save(trainer.state.state_dict(), os.path.join(root, tag + "_final.pt"))
     return 0
+
+
+def wait_children(procs: dict, timeout: float, phase: str) -> dict:
+    """Exit code and host-clock exit time of each child process; a child
+    still running at the timeout is killed and the phase fails."""
+    ended, deadline = {}, time.time() + timeout
+    try:
+        while len(ended) < len(procs):
+            if time.time() > deadline:
+                raise AssertionError(f"{phase}: a child process did not end")
+            for name, p in procs.items():
+                if name not in ended and p.poll() is not None:
+                    ended[name] = (p.returncode, time.time())
+            time.sleep(0.01)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ended
 
 
 def phase_preempt(work: str) -> None:
@@ -1158,23 +1234,8 @@ def phase_preempt(work: str) -> None:
         log.close()
         return proc
 
-    def wait(procs, timeout=300):
-        """Exit code and host-clock exit time of each process."""
-        ended, deadline = {}, time.time() + timeout
-        try:
-            while len(ended) < len(procs):
-                if time.time() > deadline:
-                    raise AssertionError("7d: a child process did not end")
-                for name, p in procs.items():
-                    if name not in ended and p.poll() is not None:
-                        ended[name] = (p.returncode, time.time())
-                time.sleep(0.01)
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        return ended
+    def wait(procs):
+        return wait_children(procs, 300, "7d")
 
     def output(exp):
         with open(os.path.join(root, exp + ".out")) as f:
@@ -1242,6 +1303,450 @@ def phase_analyze(work: str) -> None:
           f"convs and matmuls only), {info['anchors']:,} anchors, staged == full")
 
 
+# ---------------------------------------------------------------- phase 8
+
+DP_RANKS = 2
+DP_TIMEOUT = 300  # seconds for each group of child processes
+# 8a: 6a's recipe for DP_STEPS steps, two ranks x 4 rows against one process
+# x 8 on the card; the ranks' states are compared bit for bit
+DP_STEPS = 3
+# 8b: 6c's recipe and cut, global batch BATCH = DP_RANKS x 16, DP_FULL_STEPS
+# steps, then validation of the 64 val images sharded over the ranks
+DP_FULL_STEPS = 6
+DP_FIRST_LOSS_RTOL = 1e-2
+# 8a's validation: two ranks against one process (as tests/test_torch_parallel_trainer.py)
+DP_MAP_ATOL = 1e-6
+
+
+def _dp_spawn(work: str, tag: str, kind: str, world: int, *args: str,
+              backend: str = "gloo") -> dict:
+    """Start ``world`` ranks of ``chip_smoke.py --dp-child KIND BACKEND ARGS``
+    with torchrun's variables (so the port's own init path runs) and
+    deterministic cuBLAS; rank r's output goes to ``work/dp/TAG{r}.out``."""
+    os.makedirs(os.path.join(work, "dp"), exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = {}
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        log = open(os.path.join(work, "dp", f"{tag}{r}.out"), "w")
+        procs[f"{tag}{r}"] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child", kind, backend, *args],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+    return procs
+
+
+def _dp_out(work: str, name: str) -> str:
+    with open(os.path.join(work, "dp", f"{name}.out")) as f:
+        return f.read()
+
+
+def _dp_result(work: str, name: str) -> dict:
+    found = [ln for ln in _dp_out(work, name).splitlines() if ln.startswith("DP ")]
+    if not found:
+        raise AssertionError(f"{name}: no result line\n{_dp_out(work, name)[-3000:]}")
+    return json.loads(found[-1][3:])
+
+
+def _dp_wait(work: str, procs: dict, phase: str, want_rc: int = 0) -> dict:
+    ended = wait_children(procs, DP_TIMEOUT, phase)
+    for name, (rc, _) in ended.items():
+        if rc != want_rc:
+            raise AssertionError(f"{phase}: rank {name} exit {rc} (want {want_rc})\n"
+                                 + _dp_out(work, name)[-3000:])
+    return ended
+
+
+def _flat_state(state, moments: bool = True) -> torch.Tensor:
+    """Params, statistics and EMA (6a's state), and the optimizer's moments
+    unless ``moments`` is False, in one f32 vector."""
+    parts = [state.params, state.stats, state.ema_params, state.ema_stats]
+    parts += list(state.opt_state.values()) if moments else []
+    return torch.cat([t.detach().float().reshape(-1) for t in parts])
+
+
+def _dp_golden_batches() -> tuple[list, dict]:
+    """8a's global batches (8 rows each, 6a's seeded kind) and a batch with
+    a NaN pixel in row 5, one of rank 1's (as normalized f32 images, which
+    the step takes as they are)."""
+    batches = [_seeded_train_batch(8, 160, 3, seed=5 + i) for i in range(DP_STEPS)]
+    nan = _seeded_train_batch(8, 160, 3, seed=5 + DP_STEPS)
+    nan["images"] = device_normalize_images(nan["images"], torch.float32)
+    nan["images"][5, 0, 0, 0] = float("nan")
+    return batches, nan
+
+
+def _golden_run(device, batches: list, nan: dict | None = None, group=None) -> dict:
+    """6a's recipe from the golden yolov8-n, one f32 step per batch (data
+    parallel over ``group`` when one is given): the metrics and the flat
+    state after each; then, from the last state, the NaN batch, which must
+    leave the state as it was. ``flat`` is 6a's state (the moments are sums
+    of gradients, held only rank to rank)."""
+    state, step = _sgd_state(device, load_npz(os.path.join(GOLDENS[0][1], "weights.npz")),
+                             group)
+    out = {"metrics": [], "flat": [], "moments": []}
+    for b in batches:
+        m = step(state, {k: v.to(device) for k, v in b.items()})
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["flat"].append(_flat_state(state, moments=False).cpu())
+        out["moments"].append(_flat_state(state).cpu())
+    if nan is not None:
+        before = _flat_state(state)
+        m = step(state, {k: v.to(device) for k, v in nan.items()})
+        out["nan"] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "frozen": bool(torch.equal(before, _flat_state(state)))}
+    return out
+
+
+def _learned_validate(root: str, ckpt: str) -> dict:
+    """``Trainer.validate`` of 6b's trained checkpoint over 6b's 32 images
+    (sharded over the ranks under data parallelism, each rank logging under
+    its own directory): mAP@0.5, the detection count over the global
+    stream, and this process's ``select`` launches."""
+    extra = {"log_dir": os.path.join(root, f"runs_rank{get_rank()}")} if world_size() > 1 else {}
+    trainer = Trainer(_learning_config(root, "dp_val", **extra), verbose=False, device=DEVICE)
+    trainer.resume(ckpt)
+    before = select.launches
+    map50 = trainer.validate()
+    return {"map50": map50, "detections": trainer._last_val_detections,
+            "launches": select.launches - before, "val_batches": len(trainer.val_loader),
+            "sharded": trainer._val_images_local}
+
+
+def _dp_child_steps(out_path: str, learn_root: str, ckpt: str) -> None:
+    """8a (and 8d on two or more cards): this rank's rows of each batch,
+    then the sharded validation of 6b's trained checkpoint."""
+    batches, nan = _dp_golden_batches()
+    res = _golden_run(rank_device(), [shard_batch(b) for b in batches], shard_batch(nan),
+                      data_parallel_group())
+    res["val"] = _learned_validate(learn_root, ckpt)
+    torch.save(res, out_path.format(rank=get_rank()))
+
+
+def phase_dp_equality(work: str, backend: str = "gloo") -> None:
+    """8a: 6a's recipe (golden yolov8-n, 160², nc=3, f32 with TF32 off) for
+    DP_STEPS steps in two ranks x 4 rows (deterministic algorithms) against
+    one process x 8 in this one: loss terms within STEP_LOSS_RTOL and 6a's
+    state (params, statistics, EMA) within STEP_STATE_TOL after each step;
+    the two ranks' states, moments included, bitwise equal; a NaN pixel in
+    rank 1's rows makes both ranks skip. Then 6b's trained checkpoint is
+    validated in the two ranks (each serving half of every val batch, the
+    detections gathered) and in this one process: the detection count
+    equal and mAP@0.5 within DP_MAP_ATOL, so that a wrong rank order or a
+    dropped row fails; one ``select`` launch per val batch per rank."""
+    label = "8a" if backend == "gloo" else "8d"
+    out_path = os.path.join(work, "dp", f"{label}_rank{{rank}}.pt")
+    learn_root = os.path.join(work, "learn")
+    ckpt = os.path.join(learn_root, "runs", "learn", "weights", "last.ckpt")
+    procs = _dp_spawn(work, label, "8a", DP_RANKS, out_path, learn_root, ckpt, backend=backend)
+    batches, _ = _dp_golden_batches()
+    solo = _golden_run(DEVICE, batches)  # while the ranks start
+    solo_val = _learned_validate(learn_root, ckpt)
+    _dp_wait(work, procs, label)
+    ranks = [torch.load(out_path.format(rank=r), weights_only=True) for r in range(DP_RANKS)]
+    worst_loss = worst_state = between = 0.0
+    for i in range(DP_STEPS):
+        want = solo["metrics"][i]
+        for r, res in enumerate(ranks):
+            got = res["metrics"][i]
+            if got["skipped_nonfinite"] or got["num_fg"] != want["num_fg"]:
+                raise AssertionError(f"{label}: rank {r} step {i + 1}: {got} vs {want}")
+            for k in ("loss_box", "loss_cls", "loss_dfl", "total_loss"):
+                rel = abs(got[k] - want[k]) / abs(want[k])
+                worst_loss = max(worst_loss, rel)
+                if not rel <= STEP_LOSS_RTOL:
+                    raise AssertionError(f"{label}: rank {r} step {i + 1} {k} {got[k]} vs "
+                                         f"{want[k]}")
+            flat, ref = res["flat"][i], solo["flat"][i]
+            if not torch.allclose(flat, ref, **STEP_STATE_TOL):
+                raise AssertionError(f"{label}: rank {r} state after step {i + 1} differs by "
+                                     f"{(flat - ref).abs().max().item()}")
+            worst_state = max(worst_state, (flat - ref).abs().max().item())
+        between = max(between, (ranks[0]["moments"][i] - ranks[1]["moments"][i]).abs().max().item())
+    if between != 0.0:
+        raise AssertionError(f"{label}: the ranks' states differ by {between}")
+    for r, res in enumerate(ranks):
+        if not (res["nan"]["metrics"]["skipped_nonfinite"] == 1.0 and res["nan"]["frozen"]):
+            raise AssertionError(f"{label}: rank {r} did not skip the NaN step: {res['nan']}")
+    map_err = 0.0
+    for r, res in enumerate(ranks):
+        val = res["val"]
+        map_err = max(map_err, abs(val["map50"] - solo_val["map50"]))
+        if not (val["sharded"] and val["detections"] == solo_val["detections"] > 0
+                and abs(val["map50"] - solo_val["map50"]) <= DP_MAP_ATOL
+                and val["launches"] == val["val_batches"]):
+            raise AssertionError(f"{label}: rank {r}'s sharded validation {val} vs one "
+                                 f"process {solo_val}")
+    print(f"phase {label} data parallel f32 on the card ({backend}, {DP_RANKS} ranks x 4 rows "
+          f"vs one process x 8, deterministic algorithms), golden yolov8-n 160px, 6a's recipe, "
+          f"{DP_STEPS} steps: loss terms max rel err {worst_loss:.2e} (<= {STEP_LOSS_RTOL}), "
+          f"params/stats/EMA max abs err {worst_state:.2e}; the ranks' states max "
+          f"|diff| {between:.1e} (bitwise equal); a NaN pixel in rank 1's rows: both ranks "
+          f"skipped the step, state unchanged; 6b's trained checkpoint validated sharded over "
+          f"the ranks ({ranks[0]['val']['val_batches']} val batches, select launches per rank "
+          f"{', '.join(str(x['val']['launches']) for x in ranks)}): "
+          f"{ranks[0]['val']['detections']} detections, mAP@0.5 {ranks[0]['val']['map50']:.6f} "
+          f"on both ranks vs one process {solo_val['detections']} detections, "
+          f"{solo_val['map50']:.6f} (max |diff| {map_err:.1e} <= {DP_MAP_ATOL})")
+
+
+def _dp_child_full(root: str, images: str, ann: str, val_images: str, val_ann: str) -> None:
+    """8b, one rank: 6c's recipe at the global batch, fit and validation,
+    the collectives replayed alone at the step's sizes, peak memory."""
+    import torch.distributed as dist
+
+    rank = get_rank()
+    cfg = _full_config(root, images, ann, val_images, val_ann, "dp")
+    cfg.training.log_dir = os.path.join(root, f"runs_rank{rank}")  # what rank 1 writes shows
+    trainer = Trainer(cfg, verbose=False)
+    if len(trainer.train_loader) != DP_FULL_STEPS:
+        raise AssertionError(f"8b: {len(trainer.train_loader)} steps per epoch")
+    inner, events, metrics = trainer._train_step, [], []
+
+    def timed_step(state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = inner(state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+        return m
+
+    trainer._train_step = timed_step
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # counted run of the data-parallel training path
+    select.launches = 0
+    syncs = all_reduce_sum.calls
+    t0 = time.perf_counter()
+    with _quiet(os.path.join(root, f"fit_rank{rank}.log")):
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, syncs = select.launches, all_reduce_sum.calls - syncs
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    def replay_ms(sizes, reps=5):
+        """Host clock around all-reduces of f32 CUDA tensors of ``sizes``
+        (the ranks start together; the card synchronized before and after)."""
+        bufs = [torch.zeros(n, device=trainer.device) for n in sizes]
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            for b in bufs:
+                dist.all_reduce(b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times[1:])
+
+    n_params = trainer.state.params.numel()
+    bn = [2 * m.num_features + 1 for m in trainer.state.model.modules()
+          if isinstance(m, BatchNorm2d)]
+    grad_ms = replay_ms([n_params])
+    bn_ms = replay_ms(bn * 2)  # one all-reduce forward, one backward, per layer
+    result = trainer._last_val_result
+    torch.save(_flat_state(trainer.state).cpu(), os.path.join(root, f"final_rank{rank}.pt"))
+    print("DP " + json.dumps({
+        "rank": rank, "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+        "step_ms": [s.elapsed_time(e) for s, e in events], "fit_s": fit_s,
+        "launches": launches, "val_batches": len(trainer.val_loader),
+        "val_rows": trainer.val_loader.local_batch_size,
+        "syncs_per_step": syncs / DP_FULL_STEPS, "bn_layers": len(bn),
+        "grad_mb": n_params * 4 / 1e6, "grad_ms": grad_ms, "bn_ms": bn_ms,
+        "peak_gib": peak_gib, "map50": float(result.get("map_50", result["map"])),
+        "local_batch": trainer.train_loader.local_batch_size,
+    }), flush=True)
+
+
+def phase_dp_full(work: str, full: dict) -> dict:
+    """8b: yolo-ms-xs, nc=80, 640², bf16, global batch 32 = 2 ranks x 16 on
+    the card (gloo), 6c's recipe and cut for DP_FULL_STEPS steps, then the
+    sharded validation of 6c's 64 val images. The first step's loss against
+    the one-process step on the same global batch (DP_FIRST_LOSS_RTOL); the
+    ranks' states bitwise equal; the same mAP on both; one ``select`` launch
+    per val batch per rank; files from rank 0 only."""
+    root = os.path.join(work, "dp_full")
+    images, ann = make_coco_dataset(os.path.join(root, "train"),
+                                    num_images=DP_FULL_STEPS * BATCH, num_classes=NC,
+                                    img_w=640, img_h=480, max_objects=12, seed=2)
+    _, _, _, val_images, val_ann = full["data"]
+    # one process, the same first global batch
+    ref = Trainer(_full_config(root, images, ann, val_images, val_ann, "solo"), verbose=False)
+    batches = ref.train_loader.epoch(0)
+    first = ref._to_device(ref._bucket_gt(next(batches)))
+    batches.close()
+    solo_loss = float(ref._train_step(ref.state, first)["total_loss"])
+    del ref, first
+    torch.cuda.empty_cache()
+
+    procs = _dp_spawn(work, "b", "8b", DP_RANKS, root, images, ann, val_images, val_ann)
+    _dp_wait(work, procs, "8b")
+    res = [_dp_result(work, f"b{r}") for r in range(DP_RANKS)]
+    for r, x in enumerate(res):
+        if len(x["metrics"]) != DP_FULL_STEPS or x["local_batch"] != BATCH // DP_RANKS:
+            raise AssertionError(f"8b: rank {r} ran {len(x['metrics'])} steps of "
+                                 f"{x['local_batch']} rows")
+        for i, m in enumerate(x["metrics"]):
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"8b: rank {r} step {i + 1} not finite: {m}")
+            if m["skipped_nonfinite"] != 0.0 or m["num_fg"] <= 0:
+                raise AssertionError(f"8b: rank {r} step {i + 1} skipped or without "
+                                     f"positives: {m}")
+        if x["launches"] != x["val_batches"]:
+            raise AssertionError(f"8b: rank {r} launched select {x['launches']} times for "
+                                 f"{x['val_batches']} val batches")
+    first_rel = abs(res[0]["metrics"][0]["total_loss"] - solo_loss) / abs(solo_loss)
+    if not first_rel <= DP_FIRST_LOSS_RTOL:
+        raise AssertionError(f"8b: first step loss {res[0]['metrics'][0]['total_loss']} vs the "
+                             f"one-process {solo_loss}")
+    finals = [torch.load(os.path.join(root, f"final_rank{r}.pt"), weights_only=True)
+              for r in range(DP_RANKS)]
+    between = (finals[0] - finals[1]).abs().max().item()
+    if not torch.equal(finals[0], finals[1]):
+        raise AssertionError(f"8b: the ranks' final states differ by {between}")
+    if res[0]["map50"] != res[1]["map50"]:
+        raise AssertionError(f"8b: mAP {res[0]['map50']} on rank 0, {res[1]['map50']} on 1")
+    written = os.path.join(root, "runs_rank0", "dp", "weights", "last.ckpt")
+    if os.path.exists(os.path.join(root, "runs_rank1")) or not os.path.exists(written):
+        raise AssertionError("8b: rank 1 wrote files, or rank 0 wrote none")
+    step_ms = statistics.median(res[0]["step_ms"][2:])
+    fit_s = max(x["fit_s"] for x in res)
+    fit_img_s = DP_FULL_STEPS * BATCH / fit_s
+    peaks = ", ".join(f"{x['peak_gib']:.2f}" for x in res)
+    per_rank = ", ".join(str(x["launches"]) for x in res)
+    m0 = res[0]["metrics"]
+    print(f"phase 8b data parallel yolo-ms-xs nc={NC} {IMG}px bf16, global bs {BATCH} = "
+          f"{DP_RANKS} gloo ranks x {BATCH // DP_RANKS} on one card, coco_yolo_ms.yaml recipe, "
+          f"{DP_FULL_STEPS} steps: all finite, none skipped, num_fg "
+          f"{min(m['num_fg'] for m in m0):.0f}-{max(m['num_fg'] for m in m0):.0f}; first "
+          f"step loss {m0[0]['total_loss']:.4f} vs one process {solo_loss:.4f} (rel "
+          f"{first_rel:.2e}); ranks bitwise equal at the end (max |diff| {between:.1e}); "
+          f"{step_ms:.3f} ms/step (CUDA events, median of steps 3-{DP_FULL_STEPS}; all "
+          f"{', '.join(f'{t:.1f}' for t in res[0]['step_ms'])}) beside 6c's one-process "
+          f"{full['step_ms']:.3f} ms/step at bs {BATCH} in this run; end to end "
+          f"{fit_img_s:.1f} img/s ({DP_FULL_STEPS * BATCH} images over the whole fit's "
+          f"{fit_s:.2f} s, validation and checkpoint included); "
+          f"gradient all-reduce {res[0]['grad_mb']:.1f} MB f32 {res[0]['grad_ms']:.3f} ms; "
+          f"BatchNorm all-reduces {res[0]['syncs_per_step']:.0f} per step ({res[0]['bn_layers']} "
+          f"layers x 2) {res[0]['bn_ms']:.3f} ms in all (both replayed alone at the step's "
+          f"sizes, host clock, median of 5); peak memory per rank {peaks} GiB; sharded "
+          f"validation of {FULL_VAL_IMAGES} images ({res[0]['val_rows']} rows per rank per "
+          f"batch): select launches per rank {per_rank} for "
+          f"{res[0]['val_batches']} val batches, mAP@0.5 {res[0]['map50']:.4f} on both ranks; "
+          f"only rank 0 wrote files")
+    return {"launches": sum(x["launches"] for x in res)}
+
+
+def phase_dp_preempt(work: str) -> None:
+    """8c: 7d's drill in two ranks (global batch 16 = 2 x 8, deterministic
+    algorithms): U and P side by side, SIGTERM to both of P's ranks while
+    step PREEMPT_SNIPE + 1 is in flight; both exit 143, only rank 0 wrote
+    ``preempt.ckpt``; R, two ranks resumed from it, ends equal to U."""
+    root = os.path.join(work, "learn")
+    term = 128 + signal.SIGTERM
+    t0 = time.perf_counter()
+    u = _dp_spawn(work, "u", "8c", DP_RANKS, root, "dp_u", "-1")
+    p = _dp_spawn(work, "p", "8c", DP_RANKS, root, "dp_p", str(PREEMPT_SNIPE))
+    ended_p = _dp_wait(work, p, "8c", want_rc=term)
+    _dp_wait(work, u, "8c")
+    exit_s = []
+    for name in sorted(ended_p):
+        signal_at = next(float(ln.split()[1]) for ln in _dp_out(work, name).splitlines()
+                         if ln.startswith("SIGNAL_AT"))
+        exit_s.append(ended_p[name][1] - signal_at)
+    ckpt = os.path.join(root, "runs_rank0", "dp_p", "weights", "preempt.ckpt")
+    if os.path.exists(os.path.join(root, "runs_rank1")) or not os.path.exists(ckpt):
+        raise AssertionError("8c: preempt.ckpt not written by rank 0 alone")
+    restored = restore_checkpoint(ckpt)
+    cursor = (restored["epoch"], restored["step_in_epoch"], restored["state"]["step"])
+    if cursor != (1, 1, PREEMPT_SNIPE + 1):
+        raise AssertionError(f"8c: preempt.ckpt cursor (epoch, step in epoch, steps) {cursor}")
+    _dp_wait(work, _dp_spawn(work, "r", "8c", DP_RANKS, root, "dp_r", "-1", ckpt), "8c")
+    drill_s = time.perf_counter() - t0
+    worst = 0.0
+    for r in range(DP_RANKS):
+        want, got = (torch.load(os.path.join(root, f"dp_{e}_rank{r}_final.pt"), weights_only=True)
+                     for e in ("u", "r"))
+        if got["step"] != want["step"]:
+            raise AssertionError(f"8c: rank {r}: {got['step']} steps vs {want['step']}")
+        for part in ("model", "ema"):
+            for k, v in want[part].items():
+                if not v.is_floating_point():
+                    continue
+                if not torch.allclose(got[part][k], v, **PREEMPT_TOL):
+                    raise AssertionError(f"8c: rank {r} resumed {part} {k} differs")
+                worst = max(worst, (got[part][k] - v).abs().max().item())
+    print(f"phase 8c data parallel preemption drill, 7d's recipe in {DP_RANKS} gloo ranks x 8 "
+          f"rows (deterministic algorithms): SIGTERM to both ranks inside step "
+          f"{PREEMPT_SNIPE + 1}'s in-flight window -> both exit {term}, "
+          f"{', '.join(f'{t:.3f}' for t in exit_s)} s from signal to exit (ranks 0, 1; host "
+          f"clock); preempt.ckpt written by rank 0 alone at epoch 1 step 1; the two-rank "
+          f"resume == the uninterrupted two-rank run, max abs err {worst:.3e}; drill "
+          f"{drill_s:.1f} s")
+
+
+def _dp_child_nccl() -> None:
+    """8d on one card: a one-rank nccl group, one all-reduce, one step."""
+    import torch.distributed as dist
+
+    t = torch.arange(4.0, device=rank_device())
+    dist.all_reduce(t)
+    batches, _ = _dp_golden_batches()
+    m = _golden_run(rank_device(), batches[:1])["metrics"][0]
+    print("DP " + json.dumps({"backend": dist.get_backend(), "sum": t.tolist(),
+                              "loss": m["total_loss"], "skipped": m["skipped_nonfinite"]}),
+          flush=True)
+
+
+def phase_nccl(work: str) -> None:
+    """8d: over nccl, one rank per card: 8a when the host has two or more
+    cards; with one, the refusal of a second rank on the card and a one-rank
+    nccl group (init, one all-reduce, one train step)."""
+    cards = torch.cuda.device_count()
+    if cards >= DP_RANKS:
+        phase_dp_equality(work, backend="nccl")
+        return
+    import torch.distributed as dist
+
+    try:
+        maybe_initialize_distributed("nccl", world_size=2, rank=1, local_rank=1,
+                                     init_method="tcp://localhost:1")
+        raise AssertionError("8d: nccl accepted two ranks on one card")
+    except RuntimeError as e:
+        refusal = str(e).split(";")[0]
+    # the port's own refusal, before init (not a failed connection to the store)
+    if "has no card of its own" not in refusal or dist.is_initialized():
+        raise AssertionError(f"8d: not the port's refusal before init: {refusal}")
+    _dp_wait(work, _dp_spawn(work, "d", "8d", 1, backend="nccl"), "8d")
+    got = _dp_result(work, "d0")
+    if got["backend"] != "nccl" or got["sum"] != [0.0, 1.0, 2.0, 3.0] or got["skipped"]:
+        raise AssertionError(f"8d: {got}")
+    print(f"phase 8d nccl on {cards} card: a second rank on the card is refused ({refusal}); "
+          f"a one-rank nccl group: init, one all-reduce, one train step (loss "
+          f"{got['loss']:.4f}); a two-rank NCCL run needs two cards, so NCCL speed across "
+          f"cards is not measured here")
+
+
+def dp_child(kind: str, backend: str, *args: str) -> int:
+    """One rank of phase 8 (``chip_smoke.py --dp-child KIND BACKEND ...``,
+    torchrun's variables in the environment)."""
+    if kind != "8b":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    maybe_initialize_distributed(backend, device=DEVICE)
+    # a preempted 8c rank exits 143 from inside the trainer
+    {"8a": _dp_child_steps, "8b": _dp_child_full, "8c": preempt_child,
+     "8d": _dp_child_nccl}[kind](*args)
+    leave_group()
+    return 0
+
+
 def _load_select_of(checkout: str):
     """The select module of another checkout; it builds that checkout's
     ``csrc/select.cu`` into that checkout's ``build/``."""
@@ -1303,12 +1808,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
     parser.add_argument("--preempt-child", nargs="+", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-child", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.preempt_child:
         return preempt_child(*args.preempt_child)
+    if args.dp_child:
+        return dp_child(*args.dp_child)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1374,6 +1882,10 @@ def main() -> int:
         tools["video"] = phase_video(work, full, export_val["bf16"])
         phase_preempt(work)
         phase_analyze(work)
+        phase_dp_equality(work)
+        tools["train_dp_validate"] = phase_dp_full(work, full)["launches"]
+        phase_dp_preempt(work)
+        phase_nccl(work)
 
     # one batch of the flagship, one launch
     sel = runs[0]["select"]

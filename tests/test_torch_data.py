@@ -5,7 +5,8 @@ resize, normalize, mosaic, mixup, the train and eval transforms) get the
 same inputs and equally seeded generators; the COCO dataset and the
 loader's batches (train with mosaic/mixup/HSV/affine/flips for epochs 0 and
 1, a mid-epoch ``start_step``, multiscale, and eval) are compared array by
-array with ``assert_array_equal``.
+array with ``assert_array_equal``; the multi-process feed's refusals match
+the JAX loader's.
 """
 
 import numpy as np
@@ -170,13 +171,19 @@ def test_eval_batches_byte_equal(coco, normalize):
 
 
 def test_multi_process_feed_raises(coco):
+    """The multi-process feed (its batches: ``tests/test_torch_parallel.py``)
+    refuses what the JAX loader refuses: a shard outside the process count,
+    a global batch that does not split evenly, an image-only train feed."""
     images, ann = coco
     ds = CocoDetectionDataset(images, ann, 3, verbose=False)
-    with pytest.raises(NotImplementedError):
-        DetectionLoader(ds, batch_size=4, process_shard=(0, 2))
-    with pytest.raises(NotImplementedError):
-        DetectionLoader(ds, batch_size=4, is_train=False, shard_images_only=True)
+    with pytest.raises(ValueError, match="process_shard"):
+        DetectionLoader(ds, batch_size=4, process_shard=(2, 2))
+    with pytest.raises(ValueError, match="divide evenly"):
+        DetectionLoader(ds, batch_size=3, process_shard=(0, 2))
+    with pytest.raises(ValueError, match="eval-feed"):
+        DetectionLoader(ds, batch_size=4, is_train=True, shard_images_only=True)
     assert len(DetectionLoader(ds, batch_size=4, process_shard=(0, 1))) == 2
+    assert DetectionLoader(ds, batch_size=4, process_shard=(1, 2)).local_batch_size == 2
 
 
 def test_failed_batch_raises_in_the_consumer(coco):

@@ -66,5 +66,13 @@ def test_port_imports_no_jax_flax_triton_or_jax_package():
         "yolo_ms_tpu_torch.tools.export",
         "yolo_ms_tpu_torch.tools.analyze",
         "yolo_ms_tpu_torch.tools.visualize",
+        "yolo_ms_tpu_torch.tools.train",
+        "yolo_ms_tpu_torch.data.loader",
+        "yolo_ms_tpu_torch.train.loss",
+        "yolo_ms_tpu_torch.utils.logging",
+        "yolo_ms_tpu_torch.parallel",
+        "yolo_ms_tpu_torch.parallel.distributed",
+        "yolo_ms_tpu_torch.parallel.mesh",
+        "yolo_ms_tpu_torch.parallel.dryrun",
     }
     assert expected <= set(result["imported"])

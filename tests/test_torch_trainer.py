@@ -13,6 +13,10 @@
 - Both NaN-guard cases of the JAX unit tests (a non-finite loss; a finite
   loss with non-finite gradients): skipped on both sides, and the port's
   whole state unchanged but for the step count.
+- Data parallel: two ``gloo`` ranks (child processes) with one row each of
+  the same global batches against the JAX step on the global batch of 2,
+  after one and three steps, at the same tolerances; the ranks' states
+  bitwise equal; a NaN pixel in rank 1's row only makes both ranks skip.
 - GT buckets: slicing the GT padding off changes nothing.
 - ``Trainer`` resume at an epoch end and mid-epoch gives the same next
   losses as the uninterrupted run; ``tools/train.py`` on a YAML; the
@@ -203,6 +207,43 @@ def test_nan_guard_matches_and_freezes_the_state(jax_run, case):
         if v.is_floating_point():
             assert torch.isfinite(after[k]).all(), k
     assert int(port_state.step) == START_STEP + 2  # the count still advances
+
+
+def test_two_rank_step_matches_make_train_step(jax_run, tmp_path):
+    from tests.torch_dp_worker import run_ranks
+
+    states, metrics, _ = jax_run
+    nan_batch = dict(_batches()[1])
+    nan_batch["images"] = nan_batch["images"].copy()
+    nan_batch["images"][1, 0, 0, 0] = np.nan  # rank 1's row
+    torch.save({"sd": _port_initial_model().state_dict(), "nc": NC, "opt": OPT, "sched": SCHED,
+                "start_step": START_STEP, "batches": _batches(), "nan_batch": nan_batch},
+               tmp_path / "step.pt")
+    rcs, outs = run_ranks("step", 2, str(tmp_path), timeout=240)
+    assert rcs == [0, 0], outs[0][-3000:] + outs[1][-3000:]
+    ranks = [torch.load(tmp_path / f"step_rank{r}.pt", weights_only=False) for r in (0, 1)]
+    for rank in ranks:
+        for i, got in enumerate(rank["steps"]):
+            m, want = got["metrics"], metrics[i]
+            assert m["skipped_nonfinite"] == 0.0
+            assert int(m["num_fg"]) == int(want["num_fg"]) > 0
+            for k in ("loss_box", "loss_cls", "loss_dfl", "total_loss"):
+                np.testing.assert_allclose(m[k], float(want[k]), rtol=LOSS_RTOL,
+                                           err_msg=f"step {i + 1} {k}")
+            if i in (0, 2):  # after one step and after three
+                port = SimpleNamespace(step=torch.tensor(got["state"]["step"]))
+                port.model = build_model("n", num_classes=NC, device="cpu")
+                port.model.load_state_dict(got["state"]["model"])
+                port.ema = build_model("n", num_classes=NC, device="cpu")
+                port.ema.load_state_dict(got["state"]["ema"])
+                _assert_state_matches(port, states[i], f"two ranks, after step {i + 1}")
+        # the NaN in one rank's row reaches both through the statistics and
+        # the gradient: both skip, nothing moves but the count
+        assert rank["nan"]["metrics"]["skipped_nonfinite"] == 1.0
+        assert rank["nan"]["frozen"]
+        assert rank["nan"]["step"] == START_STEP + 4
+    for a, b in zip(ranks[0]["steps"], ranks[1]["steps"]):
+        assert torch.equal(a["flat"], b["flat"])  # the ranks never drift apart
 
 
 def test_gt_bucket_slicing_is_exact():

@@ -1,9 +1,10 @@
 """Batched detection loader: padded static-shape batches + async prefetch.
 
-A copy of ``yolo_ms_tpu/data/loader.py`` for the port, for one process: the
-multi-process feed (``process_shard`` with more than one process, and
-``shard_images_only``) comes with the parallel slice, and asking for it
-raises. Everything else is the JAX loader's, so batches are byte-equal.
+A copy of ``yolo_ms_tpu/data/loader.py`` for the port, the multi-process
+feed included (``process_shard``: this rank's rows of every global batch;
+``shard_images_only``: the eval feed that decodes only this rank's images and
+keeps the global targets), so batches and shards are byte-equal to the JAX
+loader's.
 
 Replaces the reference's DataLoader + concat-style collate (dataset.py:235-267
 builds a dynamic [M,6] target tensor) with the jit-friendly padded layout:
@@ -72,17 +73,31 @@ class DetectionLoader:
         self.device_normalize = device_normalize
         self.ds = dataset
         self.batch_size = batch_size
-        # The multi-process feed (rows of a global batch per process, and
-        # the image-only eval shard) is not in this slice: one process
-        # decodes the whole batch.
+        # Multi-process data parallelism: `batch_size` is the GLOBAL batch;
+        # process_shard=(index, count) makes this loader produce only rows
+        # [index*local : (index+1)*local] of every global batch. Sample
+        # content is seeded purely by (seed, epoch, idx), so the global
+        # batch is byte-identical to a single-process run whatever the
+        # number of processes.
         idx_, cnt_ = process_shard or (0, 1)
         if cnt_ < 1 or not 0 <= idx_ < cnt_:
             raise ValueError(f"invalid process_shard {(idx_, cnt_)}")
-        if cnt_ > 1 or shard_images_only:
-            raise NotImplementedError(
-                "process_shard over several processes and shard_images_only "
-                "are not ported yet (multi-process data parallel)"
+        if batch_size % cnt_:
+            raise ValueError(
+                f"global batch_size {batch_size} must divide evenly over "
+                f"{cnt_} processes"
             )
+        self._shard_index, self._shard_count = idx_, cnt_
+        self.local_batch_size = batch_size // cnt_
+        # The sharded VAL feed: decode images only for THIS process's rows,
+        # but keep targets (boxes/labels/mask/num_valid) for the FULL global
+        # batch — the detections are gathered from every rank, so every
+        # process accumulates mAP over the identical global (prediction,
+        # target) stream while no process decodes an image another one
+        # serves. Eval-only: the train feed shards targets too.
+        self.shard_images_only = bool(shard_images_only)
+        if self.shard_images_only and is_train:
+            raise ValueError("shard_images_only is an eval-feed mode")
         self.img_h, self.img_w = img_size
         self.max_gt = max_gt
         self.is_train = is_train
@@ -250,9 +265,77 @@ class DetectionLoader:
             imgs = np.stack([normalize_imagenet(im) for im in imgs])
         return imgs
 
+    def _produce_eval_images_sharded(self, batch_ids, order, pool):
+        """shard_images_only produce: targets for the FULL global batch from
+        annotation metadata, image decode for only this process's rows.
+        Falls back to full-batch decode when the dataset lacks metadata
+        (only synthetic in-memory datasets): still correct, just without
+        the decode saving."""
+        lo = self._shard_index * self.local_batch_size
+        local_ids = batch_ids[lo : lo + self.local_batch_size]
+        targets = self._eval_targets_from_metadata(batch_ids, order)
+        imgs = None
+        if targets is not None:
+            imgs = self._decode_eval_images_native(local_ids, order)
+            if imgs is None:
+                # per-sample Python decode of just the local rows
+                def img_of(i):
+                    img, boxes, labels = self._load_xyxy(int(order[i]))
+                    img, _, _ = self.transform(img, boxes, labels)
+                    return img if self.device_normalize else normalize_imagenet(img)
+
+                imgs = (
+                    list(pool.map(img_of, local_ids))
+                    if self.num_workers > 1
+                    else [img_of(i) for i in local_ids]
+                )
+        else:
+            # no metadata: decode the full batch, keep the local image rows
+            def full(i):
+                img, boxes, labels = self._load_xyxy(int(order[i]))
+                img, boxes, labels = self.transform(img, boxes, labels)
+                if not self.device_normalize:
+                    img = normalize_imagenet(img)
+                return (img,) + self._pad_targets(
+                    boxes, labels, (self.img_h, self.img_w)
+                )
+
+            results = (
+                list(pool.map(full, batch_ids))
+                if self.num_workers > 1
+                else [full(i) for i in batch_ids]
+            )
+            targets = (
+                [r[1] for r in results],
+                [r[2] for r in results],
+                [r[3] for r in results],
+            )
+            imgs = [r[0] for r in results][lo : lo + self.local_batch_size]
+        bs, ls, ms = targets
+        # pad images to the LOCAL batch size, targets to the GLOBAL one;
+        # num_valid counts the GLOBAL valid rows (mAP iterates targets)
+        img_dtype = np.uint8 if self.device_normalize else np.float32
+        zero_img = np.zeros((self.img_h, self.img_w, 3), img_dtype)
+        imgs = list(imgs)
+        while len(imgs) < self.local_batch_size:
+            imgs.append(zero_img)
+        valid = len(batch_ids)
+        while len(bs) < self.batch_size:
+            bs.append(np.zeros((self.max_gt, 4), np.float32))
+            ls.append(np.zeros((self.max_gt,), np.int32))
+            ms.append(np.zeros((self.max_gt,), bool))
+        return {
+            "images": np.stack(imgs),
+            "boxes": np.stack(bs),
+            "labels": np.stack(ls),
+            "mask": np.stack(ms),
+            "num_valid": valid,
+        }
+
     def _finish_batch(self, imgs, bs, ls, ms) -> dict:
-        """Pad a short (final) batch to the batch size with zero images."""
-        pad = self.batch_size - len(imgs)
+        """Pad a short (final) batch to the LOCAL batch size with zero
+        images (local == global when unsharded)."""
+        pad = self.local_batch_size - len(imgs)
         valid = len(imgs)
         for _ in range(pad):
             imgs.append(np.zeros_like(imgs[0]))
@@ -311,6 +394,26 @@ class DetectionLoader:
 
         def produce(batch_ids, batch_idx):
             hw = self._hw_for_batch(epoch, batch_idx)
+            if self._shard_count > 1 and self.shard_images_only:
+                return self._produce_eval_images_sharded(
+                    list(batch_ids), order, pool
+                )
+            if self._shard_count > 1:
+                lo = self._shard_index * self.local_batch_size
+                batch_ids = batch_ids[lo : lo + self.local_batch_size]
+                if not batch_ids:
+                    # short final batch whose valid rows all land on other
+                    # processes: still emit an all-padding batch — every
+                    # process must run the same number of steps or the
+                    # step's collectives deadlock
+                    h, w = hw
+                    img_dtype = np.uint8 if self.device_normalize else np.float32
+                    return self._finish_batch(
+                        [np.zeros((h, w, 3), img_dtype)],
+                        [np.zeros((self.max_gt, 4), np.float32)],
+                        [np.zeros((self.max_gt,), np.int32)],
+                        [np.zeros((self.max_gt,), bool)],
+                    ) | {"num_valid": 0}
             if not self.is_train:
                 fast = self._produce_native_eval(batch_ids, order)
                 if fast is not None:

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_ms_tpu_torch.parallel.distributed import all_reduce_sum
+
 # BatchNorm constants of the reference (components.py:73).
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum; flax decay 0.97
@@ -55,11 +57,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``stat = 0.97 * stat + 0.03 * batch_stat`` with the BIASED batch
     variance, as flax's ``nn.BatchNorm`` does. Eval mode reads the running
     statistics. ``num_batches_tracked`` is not used (the momentum is fixed).
+
+    With ``process_group`` set (a group of more than one rank, set by
+    ``set_batch_norm_group``; None by default) the train-mode statistics
+    are those of the GLOBAL batch, as under the JAX package's data-parallel
+    mesh: per channel the f32 sum, sum of squares and count are summed over
+    the ranks by one differentiable all-reduce (its backward sums the
+    statistics' gradients over the ranks), and the variance is flax's fast
+    one, ``max(E[x^2] - E[x]^2, 0)``, biased. ``nn.SyncBatchNorm`` is not
+    used: it moves ``running_var`` with the unbiased variance.
     """
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_batch_forward(x, self.process_group)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps
         )
@@ -69,6 +84,37 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y
+
+    def _global_batch_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f32 for bf16 input
+        local = torch.cat([
+            xf.sum((0, 2, 3)),
+            (xf * xf).sum((0, 2, 3)),
+            xf.new_full((1,), x.numel() // c),
+        ])
+        total = all_reduce_sum(local, group)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = (total[c : 2 * c] / n - mean * mean).clamp(min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        y = xf * scale[None, :, None, None] + shift[None, :, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y.to(x.dtype)
+
+
+def set_batch_norm_group(model: nn.Module, group) -> nn.Module:
+    """Set ``process_group`` on every ``BatchNorm2d`` of ``model``: the
+    group whose global batch its train-mode statistics are taken over, or
+    None for this process's batch alone. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
+    return model
 
 
 class ConvBnSiLU(nn.Module):

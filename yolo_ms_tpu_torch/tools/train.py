@@ -4,6 +4,13 @@ The CLI of ``yolo_ms_tpu/tools/train.py``: ``--config`` points at a YAML file
 with the reference schema; ``--resume`` restores a full training-state
 checkpoint. Training runs on the card; a config with ``device: "cpu"`` runs
 on the CPU.
+
+Data parallel on N cards of one host (``training.batch_size`` is the global
+batch, split evenly over the ranks)::
+
+    torchrun --nproc_per_node=N -m yolo_ms_tpu_torch.tools.train --config cfg.yaml
+
+One rank per card over NCCL (the CPU, ``device: "cpu"``, uses gloo).
 """
 
 from __future__ import annotations
@@ -25,15 +32,26 @@ def main(argv: list[str] | None = None) -> None:
     )
     args = parser.parse_args(argv)
 
+    from yolo_ms_tpu_torch.parallel.distributed import (
+        leave_group,
+        maybe_initialize_distributed,
+        process_info,
+    )
     from yolo_ms_tpu_torch.train.trainer import Trainer
     from yolo_ms_tpu_torch.utils.config import load_config
+    from yolo_ms_tpu_torch.utils.device import config_device
 
     try:
         cfg = load_config(args.config)
+        # several processes (torchrun): join the group before anything touches
+        # a device; the config is read first only to learn that device
+        if maybe_initialize_distributed(device=config_device(cfg) or "cuda"):
+            print(f"torch.distributed initialized: {process_info()}")
         trainer = Trainer(cfg)
         if args.resume:
             trainer.resume(args.resume)
         trainer.fit()
+        leave_group()
     except FileNotFoundError as e:
         print(f"Error: {e}. Check the config path and dataset paths inside it.")
         raise SystemExit(1)

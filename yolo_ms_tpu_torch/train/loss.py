@@ -7,7 +7,7 @@ and computes in f32 whatever the maps' dtype, as the JAX loss does:
 
 - TAL assignment over padded GT [B, M, 4] + mask, on detached predictions;
 - box loss: (1 - CIoU) weighted by target scores, normalized by the total
-  target score (floored at 1);
+  target score (floored at 1), the global batch's under data parallelism;
 - cls loss: BCE-with-logits over all anchors vs TAL soft labels, or the
   focal variant with the (alpha, gamma) knobs;
 - DFL loss: two-bin soft-label cross-entropy on stride-normalized ltrb
@@ -17,9 +17,10 @@ and computes in f32 whatever the maps' dtype, as the JAX loss does:
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from yolo_ms_tpu_torch.models.decode import DEFAULT_STRIDES, flatten_maps, make_anchors
 from yolo_ms_tpu_torch.ops.iou import bbox_iou, xywh_to_xyxy
@@ -43,6 +44,8 @@ class DetectionLoss:
     tal_alpha: float = 0.5
     tal_beta: float = 6.0
     iou_type: str = "ciou"
+    # the data-parallel process group (None: this process's batch alone)
+    group: Any = None
 
     def __call__(self, raw_maps, gt_boxes, gt_labels, gt_mask):
         """NCHW raw maps -> (total loss, metrics dict), all device tensors."""
@@ -65,6 +68,7 @@ class DetectionLoss:
             tal_alpha=self.tal_alpha,
             tal_beta=self.tal_beta,
             iou_type=self.iou_type,
+            group=self.group,
         )
 
 
@@ -129,10 +133,12 @@ def detection_loss(
     tal_alpha: float = 0.5,
     tal_beta: float = 6.0,
     iou_type: str = "ciou",
+    group=None,
 ):
     """NHWC raw maps -> (total_loss, metrics dict with loss_box / loss_cls /
     loss_dfl / total_loss / num_fg). GT boxes are normalized (cx, cy, w, h)
-    and are scaled to input pixels from the strides and map shapes."""
+    and are scaled to input pixels from the strides and map shapes. With a
+    data-parallel ``group`` the maps hold this rank's rows; see below."""
     kind = iou_type.lower()
     if kind not in ("iou", "giou", "diou", "ciou"):
         raise ValueError(f"Unsupported iou_type: {iou_type}")
@@ -168,7 +174,14 @@ def detection_loss(
         alpha=tal_alpha,
         beta=tal_beta,
     )
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    # the normalizer is that of the GLOBAL batch: under data parallelism each
+    # rank divides its own sums by max(sum over the ranks, 1), so that the
+    # ranks' losses (and their gradients) add up to the global batch's. The
+    # target scores come from the assigner and carry no gradient.
+    target_scores_sum = target_scores.sum()
+    if group is not None:
+        dist.all_reduce(target_scores_sum, group=group)
+    target_scores_sum = target_scores_sum.clamp(min=1.0)
 
     if use_focal:
         p = torch.sigmoid(cls_logits)
@@ -212,4 +225,12 @@ def detection_loss(
         "total_loss": total,
         "num_fg": fg_mask.sum(),
     }
+    if group is not None:
+        # the reported terms and num_fg are global sums, as the JAX metrics
+        # of the global batch are; ``total`` stays this rank's share
+        names, fg_dtype = list(metrics), metrics["num_fg"].dtype
+        packed = torch.stack([metrics[k].detach().float() for k in names])
+        dist.all_reduce(packed, group=group)
+        metrics = dict(zip(names, packed.unbind()))
+        metrics["num_fg"] = metrics["num_fg"].to(fg_dtype)
     return total, metrics

@@ -1,6 +1,7 @@
 """Training pipeline: the train step, validation, checkpoints and resume.
 
-Port of ``yolo_ms_tpu/train/trainer.py`` for one process on one device:
+Port of ``yolo_ms_tpu/train/trainer.py``, on one device or data parallel
+over several processes (one device per rank):
 
 - ``make_train_step`` builds the step: train-mode forward (bf16 autocast, or
   full f32 with TF32 off) -> ``DetectionLoss`` in f32 -> backward -> the
@@ -32,8 +33,24 @@ deferred to the step's commit point; ``resume`` continues from the file.
 Pretrained weights may be a reference ``.pt`` file (mapped by
 ``utils/checkpoint.py``), a flax-layout ``.npz`` or a port checkpoint.
 
-Not in this slice: the multi-process mesh (``_globalize``, ``_run_synced``,
-sharded validation) and its preemption drain.
+Data parallel (a process group of more than one rank, see
+``parallel/distributed.py``): ``training.batch_size`` is the GLOBAL batch and
+each rank's loader yields its rows of it; every rank computes the step the
+JAX package computes on the global batch. ``Trainer`` reads the group once
+and hands it to each layer that reduces over it: the BatchNorm statistics
+are the global batch's (``nn/blocks.py``), each rank's loss is its own sums
+over the global normalizer (``train/loss.py``), and ONE sum all-reduce of
+the flat gradient before the optimizer makes it the global loss's gradient. Clipping,
+decay, accumulation, the NaN guard and the EMA then see the same bytes on
+every rank, so every rank commits the same state with no further collective
+(``DistributedDataParallel`` is not used: it averages the gradients and its
+buffer broadcast overwrites the BatchNorm statistics). Validation serves each
+rank's rows and gathers the fixed-shape detections, so that every rank
+accumulates mAP over the same global stream; only rank 0 writes files. The
+JAX trainer's ``_globalize`` (assembling a global array from each host's
+rows) becomes ``_to_device``, since each rank's rows are already on its own
+device, and ``_run_synced`` (fencing each new XLA compile with a barrier)
+becomes a plain call, since nothing compiles per shape here.
 """
 
 from __future__ import annotations
@@ -42,11 +59,13 @@ import copy
 import dataclasses
 import os
 import signal
+import socket
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.profiler import record_function
 
@@ -59,7 +78,17 @@ from yolo_ms_tpu_torch.eval.coco_map import (
     update_from_batch,
 )
 from yolo_ms_tpu_torch.models.registry import build_model, init_model
+from yolo_ms_tpu_torch.nn.blocks import set_batch_norm_group
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
+from yolo_ms_tpu_torch.parallel.distributed import (
+    data_parallel_group,
+    get_rank,
+    global_max_int,
+    is_primary_process,
+    leave_group,
+    rank_device,
+    world_size,
+)
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer, freeze_mask
 from yolo_ms_tpu_torch.utils.checkpoint import (
@@ -184,7 +213,7 @@ def _precision(compute_dtype: torch.dtype, device: torch.device):
 
 
 def make_train_step(loss_fn: DetectionLoss, tx, ema_decay: float = 0.0,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32, group=None):
     """Build ``train_step(state, batch) -> metrics``, the counterpart of the
     JAX package's pure step: it updates ``state`` in place and returns the
     loss terms, ``num_fg`` and ``skipped_nonfinite`` as device scalars.
@@ -195,6 +224,14 @@ def make_train_step(loss_fn: DetectionLoss, tx, ema_decay: float = 0.0,
     four parts are ``torch.profiler`` ranges (``train_step/forward``,
     ``/loss``, ``/backward``, ``/update``), which cost nothing unless a
     profiler runs.
+
+    Under data parallelism (``group``, the process group of the ranks;
+    ``loss_fn`` and the model's BatchNorm layers carry the same group, see
+    ``Trainer``) ``batch`` holds this rank's rows, the metrics are the
+    global batch's, and the flat gradient is summed over the ranks (one
+    all-reduce) before the optimizer. A step whose collective fails
+    raises with the state as it was (the statistics the forward moved are
+    put back), so a preempted run can still save it.
     """
 
     def train_step(state: TrainState, batch: dict) -> dict:
@@ -203,19 +240,30 @@ def make_train_step(loss_fn: DetectionLoss, tx, ema_decay: float = 0.0,
         images = images.permute(0, 3, 1, 2).contiguous()
         old_stats = state.stats.clone()  # the forward updates them in place
         params = list(model.parameters())
-        with _precision(compute_dtype, images.device):
-            with record_function("train_step/forward"):
-                raw = model(images)
-            with record_function("train_step/loss"), torch.autocast(
-                    device_type=images.device.type, enabled=False):
-                loss, metrics = loss_fn(raw, batch["boxes"], batch["labels"], batch["mask"])
-            with record_function("train_step/backward"):
-                grads = torch.autograd.grad(loss, params)
+        try:
+            with _precision(compute_dtype, images.device):
+                with record_function("train_step/forward"):
+                    raw = model(images)
+                with record_function("train_step/loss"), torch.autocast(
+                        device_type=images.device.type, enabled=False):
+                    loss, metrics = loss_fn(raw, batch["boxes"], batch["labels"],
+                                            batch["mask"])
+                with record_function("train_step/backward"):
+                    grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                flat_grads = torch.cat([g.reshape(-1) for g in grads]).float()
+                if group is not None:
+                    with record_function("train_step/grad_all_reduce"):
+                        dist.all_reduce(flat_grads, group=group)
+        except BaseException:
+            with torch.no_grad():
+                state.stats.copy_(old_stats)
+            raise
 
         with torch.no_grad(), record_function("train_step/update"):
-            flat_grads = torch.cat([g.reshape(-1) for g in grads]).float()
             updates, new_opt = tx.update(flat_grads, state.opt_state, state.params)
-            good = torch.isfinite(loss) & torch.isfinite(updates).all()
+            # the global batch's loss (in one process, ``loss`` itself)
+            good = torch.isfinite(metrics["total_loss"]) & torch.isfinite(updates).all()
             new_params = state.params + updates
             if state.ema is not None and ema_decay > 0.0:
                 d = ema_decay * (1.0 - torch.exp(-(state.step.float() + 1.0) / 2000.0))
@@ -237,13 +285,25 @@ def make_train_step(loss_fn: DetectionLoss, tx, ema_decay: float = 0.0,
 
 class Trainer:
     """Config-driven training on one device (the card unless the caller or
-    the config asks for the CPU)."""
+    the config asks for the CPU), or data parallel on this rank's device
+    when a process group of several ranks is up."""
 
     def __init__(self, cfg: Config, verbose: bool = True, device=None):
         self.cfg = cfg
         self.verbose = verbose
         self.device = resolve_device(config_device(cfg, device))
+        self.rank, self.world = get_rank(), world_size()
+        self._primary = is_primary_process()
+        # the data-parallel group (None in one process): the trainer hands it
+        # to the loss, the train step and the model's BatchNorm layers
+        self.group = data_parallel_group()
+        if self.world > 1 and self.device.type == "cuda" and self.device.index is None:
+            self.device = rank_device()
         mcfg, dcfg, tcfg = cfg.model, cfg.dataset, cfg.training
+        if max(1, int(cfg.parallel.spatial)) > 1:
+            raise NotImplementedError(
+                "parallel.spatial > 1: the spatial (DP x SP) mesh is not ported yet "
+                "(ROADMAP A12)")
         self.img_size = tuple(mcfg.input_size)
         self.compute_dtype = (
             torch.bfloat16 if mcfg.compute_dtype == "bfloat16" else torch.float32
@@ -259,6 +319,7 @@ class Trainer:
             gamma=cfg.loss.gamma,
             tal_topk=cfg.loss.tal_topk,
             iou_type=cfg.loss.iou_type,
+            group=self.group,
         )
 
         # --- data ---
@@ -283,7 +344,14 @@ class Trainer:
                 device_normalize=True,
                 multiscale_sizes=tcfg.multiscale_sizes,
                 multiscale_interval=tcfg.multiscale_interval,
+                # batch_size is the GLOBAL batch; this rank decodes its rows
+                process_shard=(self.rank, self.world),
             )
+        # the sharded val feed (the JAX trainer's preconditions): each rank
+        # decodes and serves its image rows, the targets stay global
+        self._val_images_local = (
+            self.world > 1 and cfg.evaluation.batch_size % self.world == 0
+        )
         if dcfg.val_annotations_path:
             val_ds = CocoDetectionDataset(
                 dcfg.val_images_path,
@@ -301,6 +369,8 @@ class Trainer:
                 num_workers=cfg.workers,
                 drop_last=False,
                 device_normalize=True,
+                process_shard=(self.rank, self.world) if self._val_images_local else None,
+                shard_images_only=self._val_images_local,
             )
 
         # --- model: drawn on the CPU from the seed (the same weights on
@@ -331,8 +401,10 @@ class Trainer:
             tcfg, max(1, steps_per_epoch // self.accum), trainable=trainable
         )
         self.state = TrainState.create(model, self.tx, ema=tcfg.ema_decay > 0)
+        set_batch_norm_group(self.state.model, self.group)  # not the eval-only EMA copy
+        self._broadcast_state()
         self._train_step = make_train_step(
-            self.loss_fn, self.tx, tcfg.ema_decay, self.compute_dtype
+            self.loss_fn, self.tx, tcfg.ema_decay, self.compute_dtype, self.group
         )
         self.start_epoch = 0
         self.start_step = 0
@@ -351,15 +423,34 @@ class Trainer:
         # host seconds spent waiting for the loader, per step of the last fit
         self.data_wait_s: list[float] = []
 
+        # only the primary writes: every rank sees the same output directory
         self.output_dir = os.path.join(tcfg.log_dir, tcfg.experiment_name)
-        os.makedirs(self.output_dir, exist_ok=True)
-        cfg.save(os.path.join(self.output_dir, "config.yaml"))
+        if self._primary:
+            os.makedirs(self.output_dir, exist_ok=True)
+            cfg.save(os.path.join(self.output_dir, "config.yaml"))
         self.logger = MetricLogger(os.path.join(self.output_dir, "tensorboard_logs"))
         self.ckpt = CheckpointManager(
             os.path.join(self.output_dir, "weights"), save_period=tcfg.save_period
         )
 
     # ------------------------------------------------------------------ #
+
+    def _say(self, *args) -> None:
+        """Print on the primary only (every rank runs the same loop)."""
+        if self._primary:
+            print(*args)
+
+    @torch.no_grad()
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, statistics, optimizer state, EMA and step on
+        every rank (after init or resume)."""
+        if self.world == 1:
+            return
+        st = self.state
+        tensors = [st.params, st.stats, st.step, *st.opt_state.values()]
+        tensors += [t for t in (st.ema_params, st.ema_stats) if t is not None]
+        for t in tensors:
+            dist.broadcast(t, src=0)
 
     def _maybe_load_pretrained(self, model: nn.Module) -> None:
         for path in (
@@ -391,6 +482,10 @@ class Trainer:
         mask = np.asarray(host_batch["mask"])
         used = np.flatnonzero(mask.any(axis=0))
         needed = int(used[-1]) + 1 if used.size else 1
+        if world_size() > 1:
+            # every rank must slice alike (the loss's all-reduces see the same
+            # bucket): agree on the highest slot over the ranks
+            needed = global_max_int(needed)
         m = next((b for b in buckets if b >= needed), mask.shape[1])
         if m >= mask.shape[1]:
             return host_batch
@@ -410,6 +505,9 @@ class Trainer:
         }
 
     def _infer(self, model: nn.Module, images_u8: np.ndarray) -> dict:
+        """The serving tail on a batch of images: host numpy outputs. Under
+        the sharded val feed ``images_u8`` holds this rank's rows and the
+        outputs of every rank's rows are gathered in rank order."""
         with torch.inference_mode(), _precision(self.compute_dtype, self.device):
             x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
             x = device_normalize_images(x, self.compute_dtype).permute(0, 3, 1, 2).contiguous()
@@ -422,6 +520,8 @@ class Trainer:
                 conf_thresh=self.cfg.evaluation.confidence_threshold,
                 iou_thresh=self.cfg.evaluation.iou_threshold,
             )
+            if self._val_images_local:
+                out = _gather_rows(out, self.group)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     # ------------------------------------------------------------------ #
@@ -448,9 +548,10 @@ class Trainer:
         result = metric.compute()
         map50 = result.get("map_50", result["map"])
         self._last_val_result = result
+        self._last_val_detections = total_dets
         if len(thresholds) > 1:
             self.logger.scalar("Validation/mAP_50_95", result["map"], max(epoch, 0))
-        if self.verbose:
+        if self.verbose and self._primary:
             extra = f", AP@[.5:.95] = {result['map']:.4f}" if len(thresholds) > 1 else ""
             print(
                 f"Validation epoch {epoch}: {n_images} images, "
@@ -474,6 +575,7 @@ class Trainer:
         mid-epoch at the saved step."""
         restored = restore_checkpoint(path)
         self.state.load_state_dict(restored["state"])
+        self._broadcast_state()
         step_in_epoch = int(restored.get("step_in_epoch", 0) or 0)
         if step_in_epoch > 0:
             self.start_epoch = int(restored["epoch"])
@@ -485,9 +587,14 @@ class Trainer:
     def _save_preempt_and_exit(self, signum: int):
         """Save ``preempt.ckpt`` with the committed state and cursor, then
         exit 128 + signum. The card is synchronized first, so the file holds
-        every queued commit."""
+        every queued commit. Under data parallelism every rank has finished
+        its step in flight (the state is the same on all); the other ranks
+        exit at once and the primary alone saves, with no collective."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if not is_primary_process():
+            leave_group()
+            raise SystemExit(128 + signum)
         path = os.path.join(self.ckpt.dir, "preempt.ckpt")
         print(f"\nSignal {signum}: saving preemption checkpoint to {path}", flush=True)
         epoch, step = self._cursor
@@ -500,6 +607,7 @@ class Trainer:
         # the loader is a pure function of (seed, epoch, index): exact
         # mid-epoch resume
         save_checkpoint(path, self.checkpoint(epoch, step))
+        leave_group()
         raise SystemExit(128 + signum)
 
     def _install_preemption_handler(self) -> dict:
@@ -518,14 +626,21 @@ class Trainer:
 
         A watchdog (``YOLO_MS_PREEMPT_GRACE_S`` seconds, default 60) armed
         at signal time hard-exits with the same code if the save does not
-        finish. Off the main thread ``signal.signal`` raises ``ValueError``
-        and no handler is installed."""
+        finish. Under data parallelism it is also armed from a helper thread
+        woken through ``signal.set_wakeup_fd``, so that it bounds a rank
+        whose main thread is blocked in a collective (Python runs the
+        handler only when that call returns). Off the main thread
+        ``signal.signal`` raises ``ValueError`` and no handler is installed.
+        Returns what ``_restore_signal_handling`` puts back."""
         grace = float(os.environ.get("YOLO_MS_PREEMPT_GRACE_S", "60"))
 
-        def handler(signum, frame):
+        def arm(signum):
             w = threading.Timer(grace, lambda: os._exit(128 + signum))
             w.daemon = True
             w.start()
+
+        def handler(signum, frame):
+            arm(signum)
             self._preempt_signum = signum
             if self._step_active:
                 return  # defer: fit commits the step in flight, then saves
@@ -536,8 +651,42 @@ class Trainer:
             try:
                 previous[sig] = signal.signal(sig, handler)
             except ValueError:
-                pass  # not in the main thread
+                return previous  # not in the main thread
+        if self.world > 1:
+            reader, writer = socket.socketpair()
+            writer.setblocking(False)
+            previous["wakeup_fd"] = (signal.set_wakeup_fd(writer.fileno()), writer)
+
+            def watch():
+                with reader:  # closing the writer ends the loop
+                    while data := reader.recv(64):
+                        for signum in data:
+                            if signum in (signal.SIGTERM, signal.SIGINT):
+                                arm(signum)
+
+            threading.Thread(target=watch, daemon=True).start()
         return previous
+
+    @staticmethod
+    def _restore_signal_handling(previous: dict) -> None:
+        wakeup = previous.pop("wakeup_fd", None)
+        if wakeup is not None:
+            old_fd, writer = wakeup
+            signal.set_wakeup_fd(old_fd)
+            writer.close()  # the watch thread's recv returns, and it ends
+        for sig, h in previous.items():
+            signal.signal(sig, h)
+
+    def _preempted_peer_gone(self) -> bool:
+        """After a failed step under data parallelism: True when this rank
+        has a preemption signal, waiting up to 5 s for it (a peer preempted
+        first may leave before this rank's signal lands)."""
+        if self.world == 1:
+            return False
+        deadline = time.monotonic() + 5.0
+        while self._preempt_signum is None and time.monotonic() < deadline:
+            time.sleep(0.05)  # the handler runs between these sleeps
+        return self._preempt_signum is not None
 
     def fit(self) -> None:
         assert self.train_loader is not None, "no training dataset configured"
@@ -546,17 +695,16 @@ class Trainer:
         self.data_wait_s = []
         self._cursor = (self.start_epoch, self.start_step)
         previous = self._install_preemption_handler()
-        print(f"Starting training for {tcfg.epochs} epochs ({steps_per_epoch} steps/epoch)")
+        self._say(f"Starting training for {tcfg.epochs} epochs ({steps_per_epoch} steps/epoch)")
         try:
             for epoch in range(self.start_epoch, tcfg.epochs):
                 first_step = self.start_step if epoch == self.start_epoch else 0
                 self._cursor = (epoch, first_step)
                 self._fit_epoch(epoch, first_step, steps_per_epoch)
         finally:
-            for sig, h in previous.items():
-                signal.signal(sig, h)
+            self._restore_signal_handling(previous)
         self.logger.close()
-        print("Training finished.")
+        self._say("Training finished.")
 
     def _fit_epoch(self, epoch: int, first_step: int, steps_per_epoch: int) -> None:
         tcfg = self.cfg.training
@@ -577,13 +725,21 @@ class Trainer:
                 if batch is None:
                     self.data_wait_s.pop()
                     break
-                dev_batch = self._to_device(self._bucket_gt(batch))
                 # in-flight window: a signal landing here is deferred to the
                 # commit point below (see _install_preemption_handler)
                 self._step_active = True
                 try:
+                    dev_batch = self._to_device(self._bucket_gt(batch))
                     metrics = self._train_step(self.state, dev_batch)
                     self._cursor = (epoch, batch_idx + 1)
+                except Exception:
+                    # a collective that fails because a preempted peer has
+                    # gone: this step committed nothing, so drain as the
+                    # signal asks instead of dying with a traceback
+                    if self._preempted_peer_gone():
+                        self._step_active = False
+                        self._save_preempt_and_exit(self._preempt_signum)
+                    raise
                 finally:
                     self._step_active = False
                 if self._preempt_signum is not None:
@@ -592,7 +748,7 @@ class Trainer:
                 gstep = epoch * steps_per_epoch + batch_idx
                 if (batch_idx + 1) % 10 == 0 or batch_idx == 0:
                     m = {k: float(v) for k, v in metrics.items()}
-                    print(
+                    self._say(
                         f"  epoch {epoch + 1} batch {batch_idx + 1}/{steps_per_epoch} "
                         f"loss {m['total_loss']:.4f} (box {m['loss_box']:.4f} "
                         f"cls {m['loss_cls']:.4f} dfl {m['loss_dfl']:.4f})"
@@ -609,7 +765,7 @@ class Trainer:
 
         avg_loss = float(torch.stack(step_losses).mean()) if step_losses else 0.0
         self.logger.scalar("Loss/Epoch/Total", avg_loss, epoch)
-        print(
+        self._say(
             f"Epoch {epoch + 1}/{tcfg.epochs}: avg loss {avg_loss:.4f}, "
             f"{time.time() - t0:.1f}s"
         )
@@ -620,7 +776,28 @@ class Trainer:
             self.logger.scalar("Validation/mAP_50", val_metric, epoch)
 
         if self.ckpt.on_epoch_end(self.checkpoint(epoch, 0), epoch, val_metric):
-            print(f"New best mAP@0.5: {val_metric:.4f}")
+            self._say(f"New best mAP@0.5: {val_metric:.4f}")
+
+
+def _gather_rows(out: dict, group) -> dict:
+    """Every rank's rows of the fixed-shape ``[local_B, max_det]`` serving
+    outputs, concatenated in rank order: one all-gather of the four packed
+    into f32 (class ids and the valid flag are exact in f32)."""
+    packed = torch.cat([
+        out["boxes"].float(),
+        out["scores"].float()[..., None],
+        out["classes"].float()[..., None],
+        out["valid"].float()[..., None],
+    ], dim=-1)
+    parts = [torch.empty_like(packed) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, packed, group=group)
+    rows = torch.cat(parts)
+    return {
+        "boxes": rows[..., :4].to(out["boxes"].dtype),
+        "scores": rows[..., 4].to(out["scores"].dtype),
+        "classes": rows[..., 5].to(out["classes"].dtype),
+        "valid": rows[..., 6] > 0,
+    }
 
 
 @torch.no_grad()

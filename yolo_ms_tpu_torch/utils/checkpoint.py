@@ -29,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from yolo_ms_tpu_torch.parallel.distributed import is_primary_process
 from yolo_ms_tpu_torch.utils.convert import load_npz, variables_to_state_dict
 
 
@@ -55,11 +56,18 @@ def restore_checkpoint(path: str, map_location="cpu") -> Any:
 
 
 class CheckpointManager:
-    """best / last / periodic checkpoint policy (train.py:410-425 parity)."""
+    """best / last / periodic checkpoint policy (train.py:410-425 parity).
+
+    Under data parallelism every rank builds the manager and tracks the best
+    metric (all ranks validate the same global stream, so their decisions
+    agree), but only the primary writes: concurrent writers to a shared
+    output directory would interleave the files."""
 
     def __init__(self, directory: str, save_period: int = 10):
         self.dir = os.path.abspath(directory)
-        os.makedirs(self.dir, exist_ok=True)
+        self.primary = is_primary_process()
+        if self.primary:
+            os.makedirs(self.dir, exist_ok=True)
         self.save_period = save_period
         self.best_metric = self._load_best_metric()
 
@@ -82,13 +90,15 @@ class CheckpointManager:
     def on_epoch_end(self, state, epoch: int, metric: float | None = None) -> bool:
         """Save last (and epoch_N every save_period); save best and return
         True when ``metric`` beats the best so far."""
-        save_checkpoint(os.path.join(self.dir, "last.ckpt"), state)
-        if (epoch + 1) % self.save_period == 0:
-            save_checkpoint(os.path.join(self.dir, f"epoch_{epoch + 1}.ckpt"), state)
+        if self.primary:
+            save_checkpoint(os.path.join(self.dir, "last.ckpt"), state)
+            if (epoch + 1) % self.save_period == 0:
+                save_checkpoint(os.path.join(self.dir, f"epoch_{epoch + 1}.ckpt"), state)
         if metric is not None and metric > self.best_metric:
             self.best_metric = metric
-            self._save_best_metric()
-            save_checkpoint(os.path.join(self.dir, "best.ckpt"), state)
+            if self.primary:
+                self._save_best_metric()
+                save_checkpoint(os.path.join(self.dir, "best.ckpt"), state)
             return True
         return False
 

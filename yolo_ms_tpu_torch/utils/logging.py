@@ -12,14 +12,19 @@ from __future__ import annotations
 import csv
 import os
 
+from yolo_ms_tpu_torch.parallel.distributed import is_primary_process
+
 
 class MetricLogger:
-    """One writer per run; the port trains in one process (multi-process
-    training and its process-0-only writer come with the parallel slice)."""
+    """One writer per run: under data parallelism only the primary writes
+    events (a shared log directory would get interleaved files from every
+    rank); the others log nothing."""
 
     def __init__(self, log_dir: str):
         self._tb = None
         self._csv = None
+        if not is_primary_process():
+            return
         os.makedirs(log_dir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter
