@@ -109,6 +109,26 @@ that fails, and without a card. Phases, each printing one line:
       cards; on one card, the port's refusal of a second rank (before
       init) and a one-rank
       ``nccl`` group (init, one all-reduce, one train step).
+9. the exported serving program and the pipelined ``predict_paths``:
+   a. ``tools.export --program`` of both trained goldens (160², nc=3,
+      batch 1), and ``tools.export.run`` + ``export_program`` of phase 5's
+      seeded yolo-ms-xs (nc=80, batch 32, 640², conf 1e-5): seconds and
+      file MB;
+   b. the flagship program (``load_program``) on phase 5's 8 batches
+      against ``Predictor.infer`` on the same batches: ``valid`` and
+      ``classes`` equal, boxes within 1e-3 px, scores within rtol 1e-5; one
+      ``select`` launch per call; ms/batch on the host clock beside phase
+      5's, the device time of a call, and the post-process alone exported
+      and timed against the eager one (CUDA events, in turns); then
+      ``torch.profiler`` over the program, ``Predictor.infer`` and both
+      tails: wall, kernel time, card idle, device operations and host
+      reads of a device value per call;
+   c. a child interpreter serves the golden programs through
+      ``load_program``: it must import no ``yolo_ms_tpu_torch.models``
+      module (nor JAX), and its detections must match the golden ones;
+   d. ``predict_paths`` over 6c's 384 training images (640x480) at bs=32
+      640² bf16, sequential and pipelined in turns: equal results,
+      byte-equal files, one launch per batch; img/s of each.
 
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -123,8 +143,9 @@ phases 1 and 2.
 The kernel JSON counts ``select`` launches on every path
 (``launches_by_path``): the serving run of phase 5, the training run of
 phase 6c, phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
-runs, and phase 8b's data-parallel validation (``train_dp_validate``, both
-ranks' launches).
+runs, phase 8b's data-parallel validation (``train_dp_validate``, both
+ranks' launches), and phase 9's program calls (``program``) and
+``predict_paths`` runs (``predict_paths``).
 """
 
 from __future__ import annotations
@@ -152,6 +173,7 @@ from yolo_ms_tpu_torch.data import native_loader
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.data.decode import decode_and_resize
 from yolo_ms_tpu_torch.infer.predictor import Predictor
+from yolo_ms_tpu_torch.infer.program import load_program
 from yolo_ms_tpu_torch.infer.video import predict_video
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model
@@ -182,7 +204,11 @@ from yolo_ms_tpu_torch.tools.analyze import analyze
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer
 from yolo_ms_tpu_torch.train.trainer import Trainer, TrainState, make_train_step
-from yolo_ms_tpu_torch.utils.checkpoint import load_serving_state_dict, restore_checkpoint
+from yolo_ms_tpu_torch.utils.checkpoint import (
+    load_serving_state_dict,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from yolo_ms_tpu_torch.utils.config import Config, TrainingConfig, load_config
 from yolo_ms_tpu_torch.utils.convert import (
     load_npz,
@@ -501,10 +527,20 @@ def seeded_state_dict(arch: str, num_classes: int, seed: int) -> dict:
     return variables_to_state_dict(variables)
 
 
+def serve_batches() -> list:
+    """Phase 5's SERVE_BATCHES uint8 batches, made from a seed."""
+    rng = np.random.default_rng(2)
+    return [
+        rng.integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
+        for _ in range(SERVE_BATCHES)
+    ]
+
+
 def serve_model(arch: str, flush: torch.Tensor) -> dict:
+    state_dict = seeded_state_dict(arch, NC, seed=1)
     predictor = Predictor(
         arch,
-        seeded_state_dict(arch, NC, seed=1),
+        state_dict,
         num_classes=NC,
         input_size=(IMG, IMG),
         conf_thresh=1e-5,
@@ -512,11 +548,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
         dtype=torch.bfloat16,
         device="cuda",
     )
-    rng = np.random.default_rng(2)
-    batches = [
-        rng.integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
-        for _ in range(SERVE_BATCHES)
-    ]
+    batches = serve_batches()
     predictor.predict_batch(batches[0])  # warm-up (cuDNN plans, kernel load)
 
     # counted main-path run: every count at 0 just before, read just after
@@ -588,7 +620,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
         "arch": arch, "launches": launches, "sweeps": sweeps, "host_ms": med,
         "img_s": BATCH / med * 1e3, "fwd_ms": fwd_ms, "post_ms": post_ms,
         "infer_ms": infer_ms, "h2d_ms": h2d_ms, "select": batch_sel, "scales": scales,
-        "tail_err": tail_err,
+        "tail_err": tail_err, "predictor": predictor, "state_dict": state_dict,
     }
 
 
@@ -1804,6 +1836,272 @@ def phase_parent_ab(parent: str, flush: torch.Tensor, name: str) -> None:
                         for k, v in per.items()))
 
 
+# ---------------------------------------------------------------- phase 9
+
+# 9b: the program against Predictor.infer on the same batches, as phase 5's
+# kernel tail against the plain tail
+PROGRAM_BOX_ATOL = 1e-3  # px
+PROGRAM_SCORE_RTOL = 1e-5
+PROGRAM_TURNS = 2  # eager and traced tails, in turns: eager, traced, traced, eager
+# 9c: a fresh interpreter serves the golden programs with no model code
+PROGRAM_CHILD = r"""
+import json, sys
+import torch
+from yolo_ms_tpu_torch.data.decode import decode_and_resize, decode_image
+from yolo_ms_tpu_torch.infer.program import load_program
+dets = {}
+for arch, path, fixture in json.loads(sys.argv[1]):
+    oh, ow = decode_image(fixture).shape[:2]
+    x = torch.from_numpy(decode_and_resize(fixture, 160, 160)[None]).cuda()
+    with torch.inference_mode():
+        out = {k: v.cpu() for k, v in load_program(path)(x).items()}
+    sx, sy = ow / 160, oh / 160
+    dets[arch] = [
+        {"class_id": int(out["classes"][0, j]),
+         "score": round(float(out["scores"][0, j]), 4),
+         "box_xyxy": [round(min(max(v * s, 0.0), lim), 2) for v, s, lim in
+                      zip(out["boxes"][0, j].tolist(), (sx, sy, sx, sy), (ow, oh, ow, oh))]}
+        for j in out["valid"][0].nonzero().flatten().tolist()
+    ]
+banned = sorted(m for m in sys.modules if m.startswith("yolo_ms_tpu_torch.models")
+                or m.split(".")[0] in ("jax", "flax", "yolo_ms_tpu"))
+print(json.dumps({"detections": dets, "banned": banned}))
+"""
+
+
+class _Tail(torch.nn.Module):
+    """The serving tail alone (phase 5's settings), to export and time."""
+
+    def forward(self, maps):
+        return fused_postprocess(maps, NC, conf_thresh=1e-5, pre_nms_topk=1024, max_det=300)
+
+
+def serving_profile(fn, calls: int = 3) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn``, each waited for:
+    per call, the wall time, the card's kernel time (busy), the device
+    operations (kernels, copies, memsets) and the host's reads of a device
+    value (``aten::_local_scalar_dense``, one stall each: the NMS stop
+    tests). Where the profiler records no device time, busy reads 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    busy_us = ops = reads = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            ops += ev.count
+        elif ev.key == "aten::_local_scalar_dense":
+            reads += ev.count
+    return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3 / calls, "ops": ops / calls,
+            "reads": reads / calls}
+
+
+def _export_cli(log: str, *args: str) -> float:
+    """``tools.export`` with ``--program``; returns its seconds."""
+    t0 = time.perf_counter()
+    with _quiet(log):
+        tools_export.main(list(args))
+    return time.perf_counter() - t0
+
+
+def _same_detections(got: dict, want: dict, label: str) -> tuple[float, float]:
+    """``valid`` and ``classes`` equal, boxes within PROGRAM_BOX_ATOL px and
+    scores within PROGRAM_SCORE_RTOL on the valid slots; returns the worst
+    box and relative score errors."""
+    v = want["valid"]
+    if not (np.array_equal(got["valid"], v) and np.array_equal(got["classes"][v], want["classes"][v])):
+        raise AssertionError(f"{label}: valid or classes differ")
+    box_err = float(np.abs(got["boxes"][v] - want["boxes"][v]).max(initial=0.0))
+    score_err = float((np.abs(got["scores"][v] - want["scores"][v])
+                       / np.abs(want["scores"][v])).max(initial=0.0))
+    if not (box_err <= PROGRAM_BOX_ATOL and score_err <= PROGRAM_SCORE_RTOL):
+        raise AssertionError(f"{label}: boxes differ by {box_err} px, scores by {score_err}")
+    return box_err, score_err
+
+
+def phase_program(work: str, flagship: dict, full: dict) -> dict:
+    """9: the exported serving program and the pipelined ``predict_paths``.
+
+    a. ``tools.export --program`` of both trained goldens (160², nc=3,
+       batch 1), and ``tools.export.run`` + ``export_program`` of phase 5's
+       seeded yolo-ms-xs (nc=80, bs=32, 640², conf 1e-5);
+    b. the flagship program on phase 5's 8 batches against
+       ``Predictor.infer`` on the same batches (a counted run: one ``select``
+       launch per call), its ms/batch on the host clock, and the tail alone
+       exported and timed against the eager tail (CUDA events, in turns),
+       then all four profiled (``serving_profile``);
+    c. a child interpreter serves the golden programs through
+       ``load_program`` and must import no ``yolo_ms_tpu_torch.models``
+       module; its detections match the golden ones;
+    d. ``predict_paths`` over 6c's 384 training images (640x480) at bs=32
+       640² bf16 with the flagship predictor, sequential and pipelined in
+       turns: the same results and the same files; img/s of each."""
+    root = os.path.join(work, "program")
+    os.makedirs(root)
+    log = os.path.join(root, "export.log")
+    sd_path = os.path.join(root, "flagship_state_dict.ckpt")
+    save_checkpoint(sd_path, flagship["state_dict"])
+    prog = os.path.join(root, "flagship.pt2")
+    # the CLI serves at conf 0.25, where random weights keep nothing: the
+    # flagship goes through the CLI's two steps with phase 5's conf 1e-5
+    t0 = time.perf_counter()
+    with _quiet(log):
+        folded = os.path.join(root, "flagship.ckpt")
+        tools_export.run(sd_path, folded)
+        tools_export.export_program(
+            load_serving_state_dict(folded), "yolo-ms-xs", NC, prog, batch=BATCH,
+            img_size=(IMG, IMG), conf_thresh=1e-5)
+    export_s = time.perf_counter() - t0
+    golden_progs = []
+    for arch, gdir in GOLDENS:
+        path = os.path.join(root, f"golden_{arch}.pt2")
+        _export_cli(log, "--checkpoint", os.path.join(gdir, "weights.npz"),
+                    "--output", os.path.join(root, f"golden_{arch}.ckpt"), "--program", path,
+                    "--arch", arch, "--num_classes", "3", "--img_size", "160", "160")
+        golden_progs.append((arch, path, os.path.join(gdir, "fixture_000.png")))
+    print(f"phase 9a tools.export --program: yolo-ms-xs nc={NC} bs={BATCH} {IMG}px bf16 conf "
+          f"1e-5 in {export_s:.2f} s (checkpoint fold and save included), "
+          f"{os.path.getsize(prog) / 1e6:.1f} MB; goldens "
+          + ", ".join(f"{a} {os.path.getsize(p) / 1e6:.1f} MB" for a, p, _ in golden_progs))
+
+    # 9b: the counted run of the program, every count at 0 just before
+    predictor = flagship["predictor"]
+    program = load_program(prog)
+    batches = serve_batches()
+    x0 = torch.from_numpy(batches[0]).cuda()
+
+    def serve(imgs):
+        with torch.inference_mode():
+            out = program(torch.from_numpy(imgs).to("cuda"))
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    serve(batches[0])  # warm-up
+    select.launches = 0
+    host_ms, outs = [], []
+    for imgs in batches:
+        t0 = time.perf_counter()
+        outs.append(serve(imgs))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = select.launches
+    if launches != SERVE_BATCHES:
+        raise AssertionError(f"9b: select launched {launches} times in {SERVE_BATCHES} "
+                             f"program calls")
+    box_err = score_err = 0.0
+    for k, (imgs, got) in enumerate(zip(batches, outs)):
+        check_outputs(got, "9b program")
+        errs = _same_detections(got, predictor.predict_batch(imgs), f"9b batch {k}")
+        box_err, score_err = max(box_err, errs[0]), max(score_err, errs[1])
+    with torch.no_grad():
+        raw = predictor.model(_nchw(x0, torch.bfloat16), split_head=True)
+        maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
+        t0 = time.perf_counter()
+        tail = torch.export.export(_Tail(), (maps,), strict=False).module()
+        tail_export_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        _same_detections({k: v.cpu().numpy() for k, v in tail(maps).items()},
+                         {k: v.cpu().numpy() for k, v in _Tail()(maps).items()}, "9b tail")
+        eager_ms, traced_ms = [], []
+        for _ in range(PROGRAM_TURNS):
+            eager_ms.append(cuda_ms(lambda: _Tail()(maps), 5))
+            traced_ms.append(cuda_ms(lambda: tail(maps), 5))
+            traced_ms.append(cuda_ms(lambda: tail(maps), 5))
+            eager_ms.append(cuda_ms(lambda: _Tail()(maps), 5))
+        program_ms = cuda_ms(lambda: program(x0), 5)
+        # where the program's extra device time goes: the same input through
+        # the program and the eager function, whole and tail alone, profiled
+        sweeps0 = nms_fixed.sweeps
+        _Tail()(maps)
+        sweeps = nms_fixed.sweeps - sweeps0
+        prof = {"program": serving_profile(lambda: program(x0)),
+                "infer": serving_profile(lambda: predictor.infer(x0)),
+                "tail traced": serving_profile(lambda: tail(maps)),
+                "tail eager": serving_profile(lambda: _Tail()(maps))}
+    med = statistics.median(host_ms)
+    print(f"phase 9b program yolo-ms-xs bs={BATCH} {IMG}px bf16: {med:.3f} ms/batch (host "
+          f"clock, median of {SERVE_BATCHES}, uint8 numpy in -> numpy out) beside phase 5's "
+          f"predict_batch {flagship['host_ms']:.3f} ms; device {program_ms:.3f} ms per call "
+          f"(CUDA events) beside phase 5's infer {flagship['infer_ms']:.3f} ms; post-process "
+          f"alone, traced {' / '.join(f'{t:.3f}' for t in traced_ms)} ms against eager "
+          f"{' / '.join(f'{t:.3f}' for t in eager_ms)} ms (CUDA events, in turns; the tail "
+          f"exported in {tail_export_s:.2f} s); select launches {launches} in "
+          f"{SERVE_BATCHES} calls; against Predictor.infer: valid and classes equal, boxes "
+          f"max abs err {box_err:.3e} px, scores max rel err {score_err:.3e}")
+    for name, p in prof.items():
+        busy = f"{p['busy_ms']:.3f}" if p["busy_ms"] else "not measured"
+        idle = f"{p['wall_ms'] - p['busy_ms']:.3f}" if p["busy_ms"] else "not measured"
+        print(f"phase 9b torch.profiler {name}: {p['wall_ms']:.3f} ms wall per call, kernel "
+              f"time {busy} ms, card idle {idle} ms, {p['ops']:.0f} device operations, "
+              f"{p['reads']:.0f} host reads of a device value ({sweeps} NMS sweeps per call)")
+    traced, eager = prof["tail traced"], prof["tail eager"]
+    if traced["busy_ms"] and eager["busy_ms"]:
+        gap = (traced["wall_ms"] - traced["busy_ms"]) - (eager["wall_ms"] - eager["busy_ms"])
+        print(f"phase 9b traced tail's extra card idle {gap:.3f} ms per call = "
+              f"{gap / max(sweeps, 1) * 1e3:.1f} us per NMS sweep")
+
+    # 9c: a fresh interpreter with no model code
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PROGRAM_CHILD, json.dumps(golden_progs)],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"9c: the serving child failed ({proc.returncode}):\n{proc.stderr}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase 9c child interpreter served the golden programs in {child_s:.2f} s; "
+          f"banned modules imported: {child['banned']}")
+    if child["banned"]:
+        raise AssertionError(f"9c: the serving child imported {child['banned']}")
+    for arch, _, fixture in golden_progs:
+        with open(os.path.join(os.path.dirname(fixture), "fixture_000_detections.json")) as f:
+            match_golden(child["detections"][arch], json.load(f))
+        print(f"phase 9c golden {arch} from its program: {len(child['detections'][arch])} "
+              f"detections match (scores {[d['score'] for d in child['detections'][arch]]})")
+
+    # 9d: predict_paths, sequential against pipelined, in turns
+    _, images, _, _, _ = full["data"]
+    n_images = len(glob.glob(os.path.join(images, "*.jpg")))
+    dirs = {"sequential": os.path.join(root, "seq"), "pipelined": os.path.join(root, "pipe")}
+    rates = {"sequential": [], "pipelined": []}
+    select.launches = 0
+    results = {}
+    for mode in ("sequential", "pipelined", "pipelined", "sequential"):
+        t0 = time.perf_counter()
+        serve_paths = (predictor.predict_paths if mode == "pipelined"
+                       else predictor._predict_paths_sequential)
+        got = serve_paths(images, dirs[mode], verbose=False)
+        rates[mode].append(n_images / (time.perf_counter() - t0))
+        if got != results.setdefault(mode, got) or got != results["sequential"]:
+            raise AssertionError(f"9d: {mode} predict_paths results differ")
+    pp_launches = select.launches
+    if pp_launches != 4 * math.ceil(n_images / BATCH):
+        raise AssertionError(f"9d: select launched {pp_launches} times in 4 runs of "
+                             f"{n_images} images")
+    names = sorted(os.listdir(dirs["sequential"]))
+    if len(names) != 2 * n_images or names != sorted(os.listdir(dirs["pipelined"])):
+        raise AssertionError("9d: the two runs wrote different files")
+    for name in names:
+        with open(os.path.join(dirs["sequential"], name), "rb") as a, \
+                open(os.path.join(dirs["pipelined"], name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"9d: {name} differs between the two runs")
+    n_dets = sum(len(d) for d in results["sequential"].values())
+    print(f"phase 9d predict_paths yolo-ms-xs bs={BATCH} {IMG}px bf16 conf 1e-5 over "
+          f"{n_images} 640x480 JPEGs (decode, serve, draw, write JPEG and JSON): sequential "
+          f"{' / '.join(f'{r:.1f}' for r in rates['sequential'])} img/s, pipelined "
+          f"{' / '.join(f'{r:.1f}' for r in rates['pipelined'])} img/s (host clock around "
+          f"each call, in turns); select launches {pp_launches} in 4 runs; results equal "
+          f"({n_dets} detections), {len(names)} files byte-equal")
+    return {"program": launches, "predict_paths": pp_launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
@@ -1886,6 +2184,7 @@ def main() -> int:
         tools["train_dp_validate"] = phase_dp_full(work, full)["launches"]
         phase_dp_preempt(work)
         phase_nccl(work)
+        tools.update(phase_program(work, runs[0], full))
 
     # one batch of the flagship, one launch
     sel = runs[0]["select"]

@@ -1,6 +1,7 @@
 """CUDA-only tests of the port: the hand-written select kernel against its
-plain version, and the kernel tail of ``fused_postprocess`` against the plain
-tail, on the card. They skip without a card. This file imports no JAX, so on
+plain version (through its wrapper and through its ``torch.library`` op),
+the kernel tail of ``fused_postprocess`` against the plain tail, and an
+exported serving program against ``Predictor.infer``, on the card. They skip without a card. This file imports no JAX, so on
 a machine without JAX it runs with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -139,6 +140,55 @@ def test_fused_postprocess_kernel_matches_plain(card, split):
     assert torch.equal(got["classes"][v], want["classes"][v])
     torch.testing.assert_close(got["scores"][v], want["scores"][v], rtol=1e-5, atol=0)
     torch.testing.assert_close(got["boxes"][v], want["boxes"][v], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_select_op_on_card_matches_plain(card):
+    """The ``torch.library`` op on CUDA tensors is the kernel: one launch per
+    call, the plain version's result."""
+    pairs = [_views(card, 2, h, h, 80, torch.bfloat16, "nchw") for h in (16, 8, 4)]
+    boxes, clss = [list(x) for x in zip(*pairs)]
+    before = select.launches
+    for _ in range(2):
+        got = torch.ops.yolo_ms_tpu_torch.select_scales(boxes, clss, REG_MAX)
+    assert select.launches == before + 2
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_exported_program_on_card_matches_infer(card, tmp_path):
+    """The golden yolov8-n exported on the card and loaded by
+    ``load_program``: the bf16 ``Predictor.infer``'s detections, one
+    ``select`` launch per call."""
+    import os
+
+    import numpy as np
+
+    from yolo_ms_tpu_torch.infer.predictor import Predictor
+    from yolo_ms_tpu_torch.infer.program import load_program
+    from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
+    from yolo_ms_tpu_torch.tools.export import export_program
+    from yolo_ms_tpu_torch.utils.convert import load_npz
+
+    sd = fold_batchnorm(load_npz(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "golden", "trained", "weights.npz")))
+    path = str(tmp_path / "serve.pt2")
+    export_program(sd, "n", 3, path, batch=2, img_size=(160, 160), device="cuda")
+    program = load_program(path, device="cuda")
+    images = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (2, 160, 160, 3), dtype=np.uint8)).cuda()
+    predictor = Predictor("n", sd, num_classes=3, input_size=(160, 160),
+                          dtype=torch.bfloat16, conf_thresh=0.25, device="cuda")
+    want = predictor.infer(images)
+    before = select.launches
+    with torch.inference_mode():
+        got = program(images)
+    torch.cuda.synchronize()
+    assert select.launches == before + 1
+    assert torch.equal(got["valid"], want["valid"])
+    assert torch.equal(got["classes"], want["classes"])
+    for key in ("boxes", "scores"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-4)
 
 
 def _train_one_step(device, optimizer):

@@ -5,7 +5,9 @@ maps, with the assertions of tests/test_pallas_select.py: ``valid`` and
 ``classes`` equal, scores rtol 1e-5, boxes atol 1e-3. Plus the confidence
 edges, a tie case compared as sets (``torch.topk`` may order exact ties
 differently from ``approx_max_k``), and ``nms_fixed`` against the
-sequential scan and the JAX ``nms_fixed``.
+sequential scan and the JAX ``nms_fixed``; the fixed point traced by
+``torch.export`` (a ``while_loop``) against the eager loop, bit for bit and
+sweep for sweep; and ``class_aware=False`` against the JAX functions.
 """
 
 import jax
@@ -19,6 +21,8 @@ from yolo_ms_tpu.ops.nms import nms_fixed as jax_nms_fixed
 from yolo_ms_tpu.ops.postprocess import fused_postprocess as jax_fused
 from yolo_ms_tpu_torch.ops.nms import (
     CLASS_OFFSET,
+    _fixed_point_traced,
+    _overlap_and_valid,
     batched_nms,
     nms_fixed,
     nms_greedy_scan,
@@ -28,6 +32,16 @@ from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 NC, REG_MAX = 80, 16
 NB = 4 * REG_MAX
 SHAPES = [(8, 8), (4, 4), (2, 8)]  # as tests/test_pallas_select.py
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """This file compiles JAX: beside the JAX runtime's thread pool, torch's
+    one-thread-per-core default oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _maps(seed, nc=NC, scale=1.5):
@@ -171,3 +185,81 @@ def test_batched_nms_matches_jax():
     np.testing.assert_allclose(got["scores"], want["scores"], rtol=1e-6)
     np.testing.assert_allclose(got["boxes"][v], want["boxes"][v], atol=1e-4)
     assert CLASS_OFFSET == 8192.0
+
+
+def _chain(n, iou, width=20.0):
+    """n boxes in a row, each overlapping the next above ``iou`` and the one
+    after that below it: greedy keeps every other box, and the fixed point
+    settles one link per sweep."""
+    r = (1.0 - iou) / (1.0 + iou)  # the IoU of two boxes shifted by r * width
+    x = np.arange(n) * 0.75 * r * width
+    boxes = np.stack([x, np.zeros(n), x + width, np.full(n, 10.0)], -1)
+    return boxes.astype(np.float32), np.linspace(1.0, 0.5, n).astype(np.float32)
+
+
+class _TracedNms(torch.nn.Module):
+    def __init__(self, iou):
+        super().__init__()
+        self.iou = iou
+
+    def forward(self, boxes, scores):
+        keep, sweeps = _fixed_point_traced(*_overlap_and_valid(boxes, scores, self.iou))
+        return nms_fixed(boxes, scores, self.iou), keep, sweeps
+
+
+@pytest.mark.parametrize("iou", [0.3, 0.45, 0.7])
+def test_traced_fixed_point_equals_eager(iou):
+    """Rows: random boxes with padding, all padding, and a chain of 24 (23
+    links) padded to 48. The exported loop gives the eager loop's keep mask
+    bit for bit and runs as many sweeps; ``nms_fixed`` takes it while
+    exporting."""
+    boxes, scores = _nms_case(int(iou * 100), b=3)
+    scores[1] = -1.0
+    cb, cs = _chain(24, iou)
+    boxes[2, :24], scores[2, :24], scores[2, 24:] = cb, cs, -1.0
+    boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
+    program = torch.export.export(_TracedNms(iou), (boxes, scores), strict=False).module()
+    nodes = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert "while_loop" in nodes
+
+    before = nms_fixed.sweeps
+    want = nms_fixed(boxes, scores, iou)
+    eager_sweeps = nms_fixed.sweeps - before
+    got, keep, sweeps = program(boxes, scores)
+    assert nms_fixed.sweeps == before + eager_sweeps  # the program counts none
+    assert torch.equal(got, want) and torch.equal(keep, want)
+    assert int(sweeps) == eager_sweeps > 10
+    assert torch.equal(want, nms_greedy_scan(boxes, scores, iou))
+    assert not want[1].any()
+    assert want[2, :24].tolist() == [k % 2 == 0 for k in range(24)]
+
+
+@pytest.mark.parametrize("fn", ["fused_postprocess", "batched_nms"])
+def test_class_agnostic_matches_jax(fn):
+    """``class_aware=False``: one NMS over all classes, as the JAX
+    functions; fewer boxes survive than class-aware on the same input."""
+    if fn == "fused_postprocess":
+        maps = _maps(3, nc=8)
+        kw = dict(pre_nms_topk=64, max_det=20)
+        want = jax_fused(_as_inputs(maps, True, "jax"), 8, class_aware=False, **kw)
+        got = fused_postprocess(_as_inputs(maps, True, "torch"), 8, class_aware=False, **kw)
+        aware = fused_postprocess(_as_inputs(maps, True, "torch"), 8, **kw)
+        v = _assert_same(got, want)
+    else:
+        rng = np.random.default_rng(12)
+        b, a, nc = 2, 120, 5
+        preds = np.concatenate([
+            rng.uniform(0, 100, (b, a, 2)), rng.uniform(5, 40, (b, a, 2)),
+            rng.uniform(0, 1, (b, a, nc)),
+        ], -1).astype(np.float32)
+        kw = dict(conf_thresh=0.5, iou_thresh=0.45, pre_nms_topk=64, max_det=64)
+        want = jax.device_get(jax_batched_nms(jnp.asarray(preds), class_aware=False, **kw))
+        got = batched_nms(torch.from_numpy(preds), class_aware=False, **kw)
+        aware = batched_nms(torch.from_numpy(preds), **kw)
+        got = {k: t.numpy() for k, t in got.items()}
+        np.testing.assert_array_equal(got["valid"], want["valid"])
+        v = want["valid"]
+        np.testing.assert_array_equal(got["classes"][v], want["classes"][v])
+        np.testing.assert_allclose(got["scores"], want["scores"], rtol=1e-6)
+        np.testing.assert_allclose(got["boxes"][v], want["boxes"][v], atol=1e-4)
+    assert 0 < v.sum() < int(aware["valid"].sum()), (v.sum(), aware["valid"].sum())

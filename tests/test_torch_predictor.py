@@ -2,7 +2,10 @@
 reproduce their checked-in detections under the rule of
 tests/test_trained_golden.py (same count, same class, IoU > 0.9, score
 within 0.02), and the host pieces copied from the JAX package (normalize,
-letterbox, decode) give the JAX package's outputs.
+letterbox, decode) give the JAX package's outputs. ``predict_paths``
+pipelined (decode, device and writer overlapped in threads) returns and
+writes exactly what its sequential plain version does, and an exception in
+either worker thread reaches the caller.
 """
 
 import json
@@ -16,6 +19,7 @@ import torch
 from yolo_ms_tpu.data import augment as jax_augment
 from yolo_ms_tpu.data import decode as jax_decode
 from yolo_ms_tpu_torch.data import augment, decode
+from yolo_ms_tpu_torch.infer import predictor as predictor_mod
 from yolo_ms_tpu_torch.infer.predictor import Predictor, draw_detections, find_images
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.utils.convert import load_npz
@@ -147,3 +151,56 @@ def test_host_copies_match_jax():
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert got[2:] == want[2:]
+
+
+def _image_dir(root, n=5):
+    """n variants of the golden fixture (sizes, flips) as PNG files."""
+    import cv2
+
+    bgr = cv2.imread(os.path.join(GOLDEN, "trained", "fixture_000.png"))
+    sizes = [(160, 160), (200, 150), (120, 180), (160, 160), (96, 128)]
+    os.makedirs(root, exist_ok=True)
+    for k in range(n):
+        img = cv2.resize(bgr, sizes[k % len(sizes)])
+        img = img[:, ::-1] if k % 2 else img
+        cv2.imwrite(os.path.join(root, f"img_{k}.png"), np.ascontiguousarray(img))
+    return root
+
+
+def test_predict_paths_pipelined_equals_sequential(tmp_path):
+    """5 images in batches of 2 (a ragged last batch): the same results
+    dict, and byte-equal JSON and JPEG files."""
+    src = _image_dir(str(tmp_path / "src"))
+    pred = _predictor("n", "trained", batch_size=2)
+    want = pred._predict_paths_sequential(src, str(tmp_path / "seq"), verbose=False)
+    got = pred.predict_paths(src, str(tmp_path / "pipe"), verbose=False)
+    assert got == want and list(got) == list(want)
+    assert len(want) == 5 and sum(len(d) for d in want.values()) > 0
+    names = sorted(os.listdir(tmp_path / "seq"))
+    assert len(names) == 10 and names == sorted(os.listdir(tmp_path / "pipe"))
+    for name in names:
+        assert (tmp_path / "seq" / name).read_bytes() == (tmp_path / "pipe" / name).read_bytes()
+
+
+@pytest.mark.parametrize("where", ["decode", "write"])
+def test_predict_paths_worker_error_reaches_caller(tmp_path, monkeypatch, where):
+    src = _image_dir(str(tmp_path / "src"))
+    pred = _predictor("n", "trained", batch_size=2)
+    if where == "decode":
+        real = predictor_mod.decode_image
+
+        def decode_image(path):
+            if path.endswith("img_3.png"):
+                raise OSError(f"cannot decode {path}")
+            return real(path)
+
+        monkeypatch.setattr(predictor_mod, "decode_image", decode_image)
+        match = "cannot decode"
+    else:
+        def fail(*args):
+            raise OSError("disk full")
+
+        monkeypatch.setattr(Predictor, "_write_outputs", staticmethod(fail))
+        match = "disk full"
+    with pytest.raises(OSError, match=match):
+        pred.predict_paths(src, str(tmp_path / "out"), verbose=False)

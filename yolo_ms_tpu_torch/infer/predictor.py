@@ -9,8 +9,8 @@ per-image JSON with the reference record schema.
 
 ``Predictor`` takes NHWC uint8 batches, as the JAX one does; the network
 runs NCHW inside. It runs on the card unless ``device="cpu"`` is passed.
-``predict_paths`` runs its batches one after the other (decode, infer,
-write); overlapping host and device work is left for later.
+``predict_paths`` overlaps the host's decode and write with the device's
+batch, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -19,15 +19,16 @@ import contextlib
 import glob
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from yolo_ms_tpu_torch.data.augment import device_normalize_images, letterbox
+from yolo_ms_tpu_torch.data.augment import letterbox
 from yolo_ms_tpu_torch.data.decode import decode_and_resize, decode_image
+from yolo_ms_tpu_torch.infer.program import ServingProgram
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables
 from yolo_ms_tpu_torch.models.registry import build_model
-from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.utils.device import full_f32, resolve_device
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
@@ -83,27 +84,25 @@ class Predictor:
         self.reg_max = reg_max
         self.letterbox = letterbox
         self.pre_nms_topk = pre_nms_topk
+        self.serve = ServingProgram(
+            self.model,
+            num_classes,
+            reg_max,
+            conf_thresh=conf_thresh,
+            iou_thresh=iou_thresh,
+            max_det=max_det,
+            pre_nms_topk=pre_nms_topk,
+            dtype=dtype,
+        )
 
     def infer(self, images_u8: torch.Tensor) -> dict:
         """[B, H, W, 3] uint8 on the predictor's device -> post-process dict
-        of device tensors. Normalization runs on the device, so only uint8
-        pixels cross from the host."""
+        of device tensors (``ServingProgram``, the function that
+        ``tools.export --program`` exports). Normalization runs on the
+        device, so only uint8 pixels cross from the host."""
         precision = full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
         with torch.inference_mode(), precision:
-            x = device_normalize_images(images_u8, self.dtype)
-            x = x.permute(0, 3, 1, 2).contiguous()  # NCHW inside the network
-            raw = self.model(x, split_head=True)
-            # NHWC views of the NCHW maps: the select kernel reads them in place
-            maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
-            return fused_postprocess(
-                maps,
-                self.num_classes,
-                self.reg_max,
-                conf_thresh=self.conf_thresh,
-                iou_thresh=self.iou_thresh,
-                max_det=self.max_det,
-                pre_nms_topk=self.pre_nms_topk,
-            )
+            return self.serve(images_u8)
 
     def predict_batch(self, images_u8: np.ndarray) -> dict:
         """images_u8: [B, H, W, 3] uint8 at input_size. Returns host numpy."""
@@ -184,35 +183,109 @@ class Predictor:
                       save_images: bool = True, save_json: bool = True,
                       verbose: bool = True):
         """File or directory -> {image_path: [detections]}, in fixed-size
-        batches; with ``output_dir``, a drawn JPEG and a JSON per image."""
+        batches; with ``output_dir``, a drawn JPEG and a JSON per image.
+
+        Pipelined, as the JAX predictor is: batch i runs on the main thread
+        while a decode thread fills batch i+1 into the other of two host
+        buffers (pinned on the card, where it also queues the copy to the
+        card on a side stream, which the compute stream waits for) and a
+        writer thread converts, draws and writes batch i-1. An exception in
+        either thread is raised here. ``_predict_paths_sequential`` is the
+        plain version: the same steps one after another, with the same
+        results and the same files.
+        """
+        chunks, results = self._chunks(source_path, output_dir), {}
+        bs, (ih, iw) = self.batch_size, self.input_size
+        on_card = self.device.type == "cuda"
+        buffers = [torch.zeros((bs, ih, iw, 3), dtype=torch.uint8, pin_memory=on_card)
+                   for _ in range(2)]
+        copy_stream = torch.cuda.Stream(self.device) if on_card else None
+
+        def load(i):
+            # buffer i % 2 was last read by batch i - 2, whose results the
+            # main thread has already taken
+            buf = buffers[i % 2]
+            metas = self._decode_batch(chunks[i], buf.numpy())
+            if not on_card:
+                return buf, None, metas
+            with torch.cuda.stream(copy_stream):
+                x = buf.to(self.device, non_blocking=True)
+            return x, copy_stream.record_event(), metas
+
+        def write(out, metas):
+            self._write_batch(results, out, metas, output_dir, save_images, save_json, verbose)
+
+        with ThreadPoolExecutor(1, "predict-decode") as decoder, \
+                ThreadPoolExecutor(1, "predict-write") as writer:
+            loading = decoder.submit(load, 0)  # find_images found at least one
+            writing = None
+            for i in range(len(chunks)):
+                x, copied, metas = loading.result()
+                if i + 1 < len(chunks):
+                    loading = decoder.submit(load, i + 1)
+                if copied is not None:
+                    compute = torch.cuda.current_stream(self.device)
+                    compute.wait_event(copied)
+                    x.record_stream(compute)
+                out = {k: v.cpu().numpy() for k, v in self.infer(x).items()}
+                if writing is not None:
+                    writing.result()
+                writing = writer.submit(write, out, metas)
+            writing.result()
+        return results
+
+    def _predict_paths_sequential(self, source_path: str, output_dir: str | None = None,
+                                  save_images: bool = True, save_json: bool = True,
+                                  verbose: bool = True):
+        """The plain version of ``predict_paths``: decode, serve and write
+        each batch in turn on this thread."""
+        results = {}
+        for chunk in self._chunks(source_path, output_dir):
+            batch = np.zeros((self.batch_size, *self.input_size, 3), np.uint8)
+            metas = self._decode_batch(chunk, batch)
+            self._write_batch(results, self.predict_batch(batch), metas, output_dir,
+                              save_images, save_json, verbose)
+        return results
+
+    def _chunks(self, source_path: str, output_dir: str | None) -> list:
+        """The image paths under ``source_path`` in batches of
+        ``batch_size``; makes ``output_dir``."""
         paths = find_images(source_path)
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
-        ih, iw = self.input_size
         bs = self.batch_size
-        results = {}
-        for start in range(0, len(paths), bs):
-            batch = np.zeros((bs, ih, iw, 3), np.uint8)
-            metas = []
-            for k, p in enumerate(paths[start : start + bs]):
-                orig = decode_image(p)
-                if self.letterbox:
-                    inp, meta = self._preprocess(orig)
-                else:
-                    inp = decode_and_resize(p, ih, iw)
-                    oh, ow = orig.shape[:2]
-                    meta = (ow / iw, oh / ih, 0, 0, ow, oh)
-                batch[k] = inp
-                metas.append((p, orig, meta))
-            out = self.predict_batch(batch)
-            for k, (p, orig, meta) in enumerate(metas):
-                dets = self._to_detections(out, k, meta)
-                results[p] = dets
-                if verbose:
-                    print(f"{p}: {len(dets)} detections")
-                if output_dir:
-                    self._write_outputs(output_dir, p, orig, dets, save_images, save_json)
-        return results
+        return [paths[s : s + bs] for s in range(0, len(paths), bs)]
+
+    def _write_batch(self, results, out, metas, output_dir, save_images, save_json,
+                     verbose) -> None:
+        """One batch's host outputs -> ``results`` and, with ``output_dir``,
+        the drawn JPEG and the JSON of each image."""
+        for k, (p, orig, meta) in enumerate(metas):
+            dets = self._to_detections(out, k, meta)
+            results[p] = dets
+            if verbose:
+                print(f"{p}: {len(dets)} detections")
+            if output_dir:
+                self._write_outputs(output_dir, p, orig, dets, save_images, save_json)
+
+    def _decode_batch(self, chunk: list, batch: np.ndarray) -> list:
+        """Decode and resize ``chunk``'s images into the rows of ``batch``
+        (the rows after them zeroed); returns (path, original, unmap meta)
+        per image."""
+        ih, iw = self.input_size
+        metas = []
+        for k, p in enumerate(chunk):
+            orig = decode_image(p)
+            if self.letterbox:
+                inp, meta = self._preprocess(orig)
+            else:
+                inp = decode_and_resize(p, ih, iw)
+                oh, ow = orig.shape[:2]
+                meta = (ow / iw, oh / ih, 0, 0, ow, oh)
+            batch[k] = inp
+            metas.append((p, orig, meta))
+        batch[len(chunk):] = 0
+        return metas
 
     @staticmethod
     def _write_outputs(output_dir, path, orig, dets, save_images, save_json):

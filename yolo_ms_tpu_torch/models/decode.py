@@ -13,9 +13,7 @@ from typing import Sequence
 
 import torch
 
-from yolo_ms_tpu_torch.nn.blocks import dfl_expectation
-
-DEFAULT_STRIDES: tuple[int, ...] = (8, 16, 32)
+from yolo_ms_tpu_torch.nn.blocks import DEFAULT_STRIDES, dfl_expectation
 
 
 def make_anchors(

@@ -33,6 +33,7 @@ from yolo_ms_tpu_torch.parallel.distributed import all_reduce_sum
 # BatchNorm constants of the reference (components.py:73).
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum; flax decay 0.97
+DEFAULT_STRIDES: tuple[int, ...] = (8, 16, 32)  # the head's three scales
 
 
 def yolo_params(version: str) -> tuple[float, float, float]:

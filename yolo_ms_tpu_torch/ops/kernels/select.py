@@ -10,6 +10,10 @@ over scales, A = sum HW_i:
     ltrb [B, A, 4] f32   DFL expectation l, t, r, b
 
 ``select(box, cls, reg_max)`` is the one-scale call of the same kernel.
+Both go through the ``torch.library`` op ``yolo_ms_tpu_torch::select_scales``
+(registered when this module is imported), so a ``torch.export`` program
+records the call and a process that loads the program launches the kernel
+through this module, building it at first use.
 
 It replaces the TPU Pallas kernel ``yolo_ms_tpu/ops/pallas/select.py``
 (``_select_kernel`` via ``select_scale``). On CUDA tensors it launches
@@ -152,23 +156,19 @@ def select_scales_plain(pairs: Sequence, reg_max: int = 16):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-def select_scales(pairs: Sequence, reg_max: int = 16):
-    """Kernel on CUDA tensors (one launch), ``select_scales_plain`` on CPU
-    tensors; see the module docstring for shapes."""
-    pairs = [tuple(p) for p in pairs]
+def _launch(boxes: list, clss: list, reg_max: int):
+    """The CUDA implementation of the op: one launch of ``csrc/select.cu``
+    for all scales, or an error."""
+    pairs = list(zip(boxes, clss))
     _check(pairs, reg_max)
-    box0, cls0 = pairs[0]
-    if box0.device.type == "cpu":
-        return select_scales_plain(pairs, reg_max)
-    if box0.device.type != "cuda":
-        raise ValueError(f"select runs on cuda or cpu tensors, not {box0.device}")
-    for t in (x for p in pairs for x in p):
+    for t in (*boxes, *clss):
         if t.shape[1] > 1 and t.shape[2] > 1 and 1 not in t.stride()[1:]:
             raise ValueError(
                 f"select needs an anchor or a channel stride of 1; got strides {t.stride()}"
             )
+    box0, cls0 = pairs[0]
     b, nc = box0.shape[0], cls0.shape[2]
-    a = sum(box.shape[1] for box, _ in pairs)
+    a = sum(box.shape[1] for box in boxes)
     dev = box0.device
     mx = torch.empty((b, a), dtype=torch.float32, device=dev)
     cid = torch.empty((b, a), dtype=torch.int32, device=dev)
@@ -194,6 +194,50 @@ def select_scales(pairs: Sequence, reg_max: int = 16):
     select_scales.last_routes = [(ROUTES[routes[2 * i]], ROUTES[routes[2 * i + 1]])
                                  for i in range(len(pairs))]
     return mx, cid, ltrb
+
+
+@torch.library.custom_op("yolo_ms_tpu_torch::select_scales", mutates_args=())
+def select_scales_op(
+    boxes: list[torch.Tensor], clss: list[torch.Tensor], reg_max: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``torch.ops.yolo_ms_tpu_torch.select_scales``: the kernel on CUDA
+    tensors, the plain version on CPU tensors, shapes alone on meta and
+    fake tensors; any other device raises."""
+    raise ValueError(f"select runs on cuda or cpu tensors, not {boxes[0].device}")
+
+
+@select_scales_op.register_fake
+def _select_scales_fake(boxes, clss, reg_max):
+    _check(list(zip(boxes, clss)), reg_max)
+    b, a = boxes[0].shape[0], sum(box.shape[1] for box in boxes)
+    return (
+        boxes[0].new_empty((b, a), dtype=torch.float32),
+        boxes[0].new_empty((b, a), dtype=torch.int32),
+        boxes[0].new_empty((b, a, 4), dtype=torch.float32),
+    )
+
+
+@select_scales_op.register_kernel("cpu")
+def _select_scales_cpu(boxes, clss, reg_max):
+    pairs = list(zip(boxes, clss))
+    _check(pairs, reg_max)
+    return select_scales_plain(pairs, reg_max)
+
+
+select_scales_op.register_kernel("cuda")(_launch)
+
+
+def select_scales(pairs: Sequence, reg_max: int = 16):
+    """Kernel on CUDA tensors (one launch), ``select_scales_plain`` on CPU
+    tensors, through the op ``yolo_ms_tpu_torch::select_scales`` so that
+    ``torch.export`` can trace it; see the module docstring for shapes."""
+    if not pairs:
+        raise ValueError(f"select takes 1 to {MAX_SCALES} scales, got 0")
+    dev = pairs[0][0].device
+    if dev.type not in ("cuda", "cpu"):  # the op itself answers meta tensors with shapes
+        raise ValueError(f"select runs on cuda or cpu tensors, not {dev}")
+    boxes, clss = zip(*pairs)
+    return select_scales_op(list(boxes), list(clss), reg_max)
 
 
 def select(box: torch.Tensor, cls: torch.Tensor, reg_max: int = 16):

@@ -7,8 +7,8 @@ straight into the concatenated outputs; the top ``pre_nms_topk`` anchors are
 taken with ``torch.topk``,
 gated by confidence (strict ``sigmoid > conf_thresh``), their ltrb and class
 ids gathered, their anchors computed arithmetically from the flat index,
-then class-offset greedy NMS (``nms_fixed``), the top ``max_det``, and the
-invalid slots zeroed.
+then greedy NMS (``nms_fixed``, class-offset unless ``class_aware=False``),
+the top ``max_det``, and the invalid slots zeroed.
 
 What differs from the JAX function, by design:
 - ``approx_max_k(recall_target=1.0)`` is ``torch.topk``; the order of
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from yolo_ms_tpu_torch.models.decode import DEFAULT_STRIDES
+from yolo_ms_tpu_torch.nn.blocks import DEFAULT_STRIDES
 from yolo_ms_tpu_torch.ops.kernels.select import select_scales, select_scales_plain
 from yolo_ms_tpu_torch.ops.nms import CLASS_OFFSET, gather_rows, nms_fixed
 
@@ -40,6 +40,7 @@ def fused_postprocess(
     iou_thresh: float = 0.45,
     pre_nms_topk: int = 1024,
     max_det: int = 300,
+    class_aware: bool = True,
     use_kernel: bool = True,
 ):
     """Per-scale NHWC maps [B, H, W, 4*reg_max+nc], or (box [B, H, W,
@@ -48,8 +49,14 @@ def fused_postprocess(
     'valid' [B, max_det] bool. Invalid slots are all zero.
 
     The maps may be views with any strides (a ``permute(0, 2, 3, 1)`` of the
-    NCHW head output is read in place). ``use_kernel=False`` runs the plain
-    torch version of ``select_scales`` on any device.
+    NCHW head output is read in place). NMS is per class unless
+    ``class_aware=False`` or there is one class (the JAX rule).
+    ``use_kernel=False`` runs the plain torch version of ``select_scales``
+    on any device.
+
+    It traces for ``torch.export`` as it is: every shape is static, the
+    constants below are built from those shapes, the select kernel is a
+    ``torch.library`` op and ``nms_fixed`` becomes a ``while_loop``.
     """
     split = isinstance(raw_maps[0], (tuple, list))
     nb = 4 * reg_max
@@ -101,7 +108,9 @@ def fused_postprocess(
     boxes = torch.cat([x1y1, x2y2], dim=-1)  # xyxy px
 
     # class-aware: boxes of different classes never overlap after the shift
-    shifted = boxes + classes[..., None].float() * CLASS_OFFSET
+    shifted = boxes
+    if class_aware and num_classes > 1:
+        shifted = boxes + classes[..., None].float() * CLASS_OFFSET
     keep = nms_fixed(shifted, scores, iou_thresh)
     kept = torch.where(keep, scores, -1.0)
 
