@@ -130,6 +130,32 @@ that fails, and without a card. Phases, each printing one line:
       640² bf16, sequential and pipelined in turns: equal results,
       byte-equal files, one launch per batch; img/s of each.
 
+10. hybrid data x spatial training and height-sharded serving, in gloo
+    ranks on the one card (this script with ``--dp-child 10``): first 2
+    ranks, then 4; one process in this one is the reference:
+    a. 6a's recipe from the golden yolov8-n (160², f32, TF32 off,
+       deterministic algorithms, SGD), two steps on 6a's batch of 8 on a
+       (1, 2) and a (2, 2) mesh: step 1 loss terms within rtol 1e-5,
+       ``num_fg`` equal, params / statistics / EMA within rtol 1e-3 / atol
+       1e-5; step 2 by the JAX spatial test's rules (``num_fg`` within 2,
+       loss within 5e-2, parameters within 1e-2 in relative norm); the
+       ranks bitwise equal. The 5-row P5 map splits 2/3: the uneven case;
+    b. 8b's recipe, set and cut with ``parallel.spatial = 2`` through
+       ``Trainer.fit`` on the 4 ranks' (2, 2) mesh (16 images x 320 rows
+       each), 6 steps, then validation sharded over data only: every step
+       finite, none skipped, positives in each; the first loss within 1e-2
+       of one process (8b's); the ranks bitwise equal; one mAP; files from
+       rank 0 only; ms/step beside 6c's and 8b's, the third step's halo
+       exchanges replayed alone, and the peak memory of each rank beside
+       8b's;
+    c. both trained goldens (conf 0.25) and yolo-ms-xs with phase 5's seeded
+       weights on one 1280² image (conf 1e-5), f32, served height-sharded
+       over S = 2 and 4 ranks (``serve_height_sharded``): valid flags and
+       scores slot by slot within rtol 1e-5, each detection one of the
+       one-process NMS survivors (boxes rtol 1e-4 / atol 1e-3); the goldens'
+       checked-in detections matched on every rank; one ``select`` launch
+       per call per rank; ms per image beside one process.
+
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -144,8 +170,10 @@ The kernel JSON counts ``select`` launches on every path
 (``launches_by_path``): the serving run of phase 5, the training run of
 phase 6c, phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
 runs, phase 8b's data-parallel validation (``train_dp_validate``, both
-ranks' launches), and phase 9's program calls (``program``) and
-``predict_paths`` runs (``predict_paths``).
+ranks' launches), phase 9's program calls (``program``) and
+``predict_paths`` runs (``predict_paths``), and phase 10's validation on
+the (2, 2) mesh (``train_spatial_validate``) and height-sharded serving
+(``serve_height_sharded``), every rank's launches.
 """
 
 from __future__ import annotations
@@ -177,7 +205,7 @@ from yolo_ms_tpu_torch.infer.program import load_program
 from yolo_ms_tpu_torch.infer.video import predict_video
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model
-from yolo_ms_tpu_torch.nn.blocks import BatchNorm2d, set_batch_norm_group
+from yolo_ms_tpu_torch.nn.blocks import BatchNorm2d, set_batch_norm_group, set_spatial_group
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
 from yolo_ms_tpu_torch.ops.kernels.select import (
     select,
@@ -190,13 +218,15 @@ from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.parallel.distributed import (
     all_reduce_sum,
     data_parallel_group,
+    exchange,
     get_rank,
     leave_group,
     maybe_initialize_distributed,
     rank_device,
     world_size,
 )
-from yolo_ms_tpu_torch.parallel.mesh import shard_batch
+from yolo_ms_tpu_torch.parallel.mesh import hybrid_batch_sharding, make_mesh_2d, shard_batch
+from yolo_ms_tpu_torch.parallel.spatial import serve_height_sharded
 from yolo_ms_tpu_torch.tools import export as tools_export
 from yolo_ms_tpu_torch.tools import test as tools_test
 from yolo_ms_tpu_torch.tools import val as tools_val
@@ -687,20 +717,24 @@ def _seeded_train_batch(b: int, img: int, nc: int, seed: int) -> dict:
     }
 
 
-def _sgd_state(device, state_dict: dict, group=None):
+def _sgd_state(device, state_dict: dict, group=None, mesh=None):
     """yolov8-n (nc=3) from ``state_dict`` with 6a's recipe, SGD-nesterov,
     weight decay, clipping and EMA (its ramp at step 4000): the state and
-    the f32 step, data parallel over ``group`` when one is given."""
+    the f32 step, data parallel over ``group`` when one is given, or on a
+    2-D ``mesh`` (data parallel and height-sharded)."""
     model = build_model("n", num_classes=3, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     cfg = TrainingConfig(batch_size=8, epochs=1, optimizer="sgd", learning_rate=0.01,
                          weight_decay=5e-4, grad_clip_norm=10.0, ema_decay=0.9999)
     tx, _ = build_optimizer(cfg, 4)
     state = TrainState.create(model.to(device), tx, ema=True)
-    set_batch_norm_group(state.model, group)
     state.step.fill_(4000)
-    return state, make_train_step(DetectionLoss(num_classes=3, group=group), tx, cfg.ema_decay,
-                                  torch.float32, group)
+    loss = DetectionLoss(num_classes=3, group=group)
+    if mesh is None:
+        set_batch_norm_group(state.model, group)
+    else:
+        loss = mesh.attach(state.model, loss)
+    return state, make_train_step(loss, tx, cfg.ema_decay, torch.float32, group, mesh)
 
 
 def _one_train_step(device: str, state_dict: dict, batch: dict):
@@ -1384,8 +1418,9 @@ def _dp_result(work: str, name: str) -> dict:
     return json.loads(found[-1][3:])
 
 
-def _dp_wait(work: str, procs: dict, phase: str, want_rc: int = 0) -> dict:
-    ended = wait_children(procs, DP_TIMEOUT, phase)
+def _dp_wait(work: str, procs: dict, phase: str, want_rc: int = 0,
+             timeout: float = DP_TIMEOUT) -> dict:
+    ended = wait_children(procs, timeout, phase)
     for name, (rc, _) in ended.items():
         if rc != want_rc:
             raise AssertionError(f"{phase}: rank {name} exit {rc} (want {want_rc})\n"
@@ -1673,7 +1708,9 @@ def phase_dp_full(work: str, full: dict) -> dict:
           f"batch): select launches per rank {per_rank} for "
           f"{res[0]['val_batches']} val batches, mAP@0.5 {res[0]['map50']:.4f} on both ranks; "
           f"only rank 0 wrote files")
-    return {"launches": sum(x["launches"] for x in res)}
+    return {"launches": sum(x["launches"] for x in res), "solo_loss": solo_loss,
+            "step_ms": step_ms, "peak_gib": [x["peak_gib"] for x in res],
+            "data": (root, images, ann, val_images, val_ann)}
 
 
 def phase_dp_preempt(work: str) -> None:
@@ -1767,14 +1804,14 @@ def phase_nccl(work: str) -> None:
 
 
 def dp_child(kind: str, backend: str, *args: str) -> int:
-    """One rank of phase 8 (``chip_smoke.py --dp-child KIND BACKEND ...``,
-    torchrun's variables in the environment)."""
+    """One rank of phase 8 or 10 (``chip_smoke.py --dp-child KIND BACKEND
+    ...``, torchrun's variables in the environment)."""
     if kind != "8b":
         torch.use_deterministic_algorithms(True, warn_only=True)
     maybe_initialize_distributed(backend, device=DEVICE)
     # a preempted 8c rank exits 143 from inside the trainer
     {"8a": _dp_child_steps, "8b": _dp_child_full, "8c": preempt_child,
-     "8d": _dp_child_nccl}[kind](*args)
+     "8d": _dp_child_nccl, "10": _sp_child}[kind](*args)
     leave_group()
     return 0
 
@@ -2102,6 +2139,416 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
     return {"program": launches, "predict_paths": pp_launches}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# gloo ranks on the one card: 2 and then 4. 10a runs on the (world // 2, 2)
+# mesh, 10c height-sharded over all the ranks, 10b on the 4 ranks' (2, 2)
+SP_WORLDS = (2, 4)
+SP_TIMEOUT = 400  # seconds for each group of ranks
+# 10a: the JAX spatial test's rules (tests/test_spatial_sharding.py:152-177)
+SP_LOSS_RTOL = 1e-5
+SP_STEP2_FG = 2
+SP_STEP2_LOSS_RTOL = 5e-2
+SP_STEP2_PARAM_REL = 1e-2
+# 10c: the serving tolerances of tests/test_spatial_sharding.py:49-55
+SP_SCORE_RTOL = 1e-5
+SP_BOX_TOL = dict(rtol=1e-4, atol=1e-3)
+SP_FLAGSHIP_IMG = 1280
+SP_SERVE_CALLS = 5  # per model; the first is a warm-up
+
+
+def _sp_serve_cases() -> list:
+    """10c's models: both trained goldens on their fixture (160², nc 3, conf
+    0.25) and yolo-ms-xs with phase 5's seeded weights on one seeded 1280²
+    image (nc 80, conf 1e-5), all served in f32 with TF32 off."""
+    import cv2
+
+    cases = []
+    for arch, gdir in GOLDENS:
+        bgr = cv2.imread(os.path.join(gdir, "fixture_000.png"))
+        cases.append({"name": f"golden {arch}", "arch": arch, "nc": 3, "img": 160,
+                      "conf": 0.25, "sd": load_npz(os.path.join(gdir, "weights.npz")),
+                      "rgb": cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB), "golden": gdir})
+    u8 = np.random.default_rng(7).integers(
+        0, 256, (1, SP_FLAGSHIP_IMG, SP_FLAGSHIP_IMG, 3), dtype=np.uint8)
+    cases.append({"name": "yolo-ms-xs", "arch": "yolo-ms-xs", "nc": NC, "img": SP_FLAGSHIP_IMG,
+                  "conf": 1e-5, "sd": seeded_state_dict("yolo-ms-xs", NC, seed=1), "u8": u8})
+    return cases
+
+
+def _sp_predictor(case: dict, device, max_det: int = 300) -> Predictor:
+    return Predictor(case["arch"], case["sd"], num_classes=case["nc"],
+                     input_size=(case["img"], case["img"]), conf_thresh=case["conf"],
+                     iou_thresh=0.45, max_det=max_det, dtype=torch.float32, device=device)
+
+
+def _sp_input(predictor: Predictor, case: dict):
+    """One image as a uint8 batch on the predictor's device, and its meta."""
+    if "rgb" in case:
+        inp, meta = predictor._preprocess(case["rgb"])
+        return torch.from_numpy(inp[None]).to(predictor.device), meta
+    return torch.from_numpy(case["u8"]).to(predictor.device), None
+
+
+def _sp_select_check(predictor: Predictor, x: torch.Tensor, label: str, mesh=None) -> dict:
+    """``select_scales`` against ``select_scales_plain`` on the maps that 10c
+    serves it (the head's split maps as [B, HW, C] views, f32): of one
+    process, or on ``mesh`` those of the sharded forward, gathered to full
+    height. These launches are not 10c's count."""
+    rows = mesh.shards.rows(x.shape[1]) if mesh else contextlib.nullcontext()
+    with torch.inference_mode(), full_f32(), rows:
+        raw = predictor.model(_nchw(mesh.shards.own_rows(x, 1) if mesh else x), split_head=True)
+    pairs = [(b.permute(0, 2, 3, 1).flatten(1, 2), c.permute(0, 2, 3, 1).flatten(1, 2))
+             for b, c in raw]
+    err, routes, _ = compare_select(pairs, torch.float32, label)
+    return {"err": err, "hw": [b.shape[1] for b, _ in pairs], "routes": _route_names(routes)}
+
+
+def _sp_timed(fn, before=lambda: None) -> tuple[dict, list, float]:
+    """SP_SERVE_CALLS calls of ``fn``: the last output, each call's select
+    launches, and the median host-clock ms of the calls after the first."""
+    times, launches = [], []
+    for _ in range(SP_SERVE_CALLS):
+        torch.cuda.synchronize()
+        before()
+        n, t0 = select.launches, time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(select.launches - n)
+    return {k: v.cpu() for k, v in out.items()}, launches, statistics.median(times[1:])
+
+
+def _sp_child_steps(mesh) -> dict:
+    """10a, one rank: 6a's recipe from the golden yolov8-n, two steps on this
+    rank's part of 6a's batch of 8."""
+    dev = rank_device()
+    batch = hybrid_batch_sharding(mesh)(_seeded_train_batch(8, 160, 3, seed=5))
+    state, step = _sgd_state(dev, load_npz(os.path.join(GOLDENS[0][1], "weights.npz")),
+                             mesh=mesh)
+    local = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()}
+    out, before = {"metrics": [], "flat": [], "moments": []}, mesh.shards.exchanges
+    for _ in range(2):
+        m = step(state, local)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["flat"].append(_flat_state(state, moments=False).cpu())
+        out["moments"].append(_flat_state(state).cpu())
+    out["exchanges"] = (mesh.shards.exchanges - before) / 2
+    out["rows"] = list(local["images"].shape[:2])
+    return out
+
+
+def _sp_child_serve(mesh) -> dict:
+    """10c, one rank: each model served height-sharded over the mesh's
+    spatial group, the ranks starting each call together."""
+    import torch.distributed as dist
+
+    out = {}
+    for case in _sp_serve_cases():
+        predictor = _sp_predictor(case, rank_device())
+        set_spatial_group(predictor.model, mesh)
+        x, _ = _sp_input(predictor, case)
+        before = mesh.shards.exchanges
+        res, launches, ms = _sp_timed(lambda: serve_height_sharded(predictor.infer, x, mesh),
+                                      dist.barrier)
+        out[case["name"]] = {"out": res, "launches": launches, "ms": ms,
+                             "exchanges": (mesh.shards.exchanges - before) / SP_SERVE_CALLS}
+        if "golden" not in case:
+            out[case["name"]]["select"] = _sp_select_check(
+                predictor, x, f"10c {case['name']} S={mesh.spatial} rank {get_rank()}", mesh)
+    return out
+
+
+def _sp_child_full(root: str, images: str, ann: str, val_images: str, val_ann: str) -> dict:
+    """10b, one rank: 8b's recipe, set and cut with ``parallel.spatial = 2``
+    (a (2, 2) mesh), fit and validation; the halo exchanges of the third
+    step recorded and replayed alone; peak memory."""
+    import torch.distributed as dist
+
+    rank = get_rank()
+    cfg = _full_config(root, images, ann, val_images, val_ann, "sp")
+    cfg.training.log_dir = os.path.join(root, f"sp_runs_rank{rank}")  # what others write shows
+    cfg.parallel.spatial = 2
+    trainer = Trainer(cfg, verbose=False)
+    if len(trainer.train_loader) != DP_FULL_STEPS:
+        raise AssertionError(f"10b: {len(trainer.train_loader)} steps per epoch")
+    shards = trainer.mesh.shards
+    inner, events, metrics = trainer._train_step, [], []
+    send_recv, recorded, record = shards._send_recv, [], [False]
+
+    def recording(sends, recvs):
+        if record[0]:
+            recorded.append(tuple({r: (t.shape, t.dtype) for r, t in d.items()}
+                                  for d in (sends, recvs)))
+        return send_recv(sends, recvs)
+
+    def timed_step(state, batch):
+        record[0] = len(events) == 2  # the third step
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = inner(state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+        return m
+
+    shards._send_recv = recording
+    trainer._train_step = timed_step
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # counted run of the hybrid training path
+    select.launches = 0
+    exchanges, syncs = shards.exchanges, all_reduce_sum.calls
+    t0 = time.perf_counter()
+    with _quiet(os.path.join(root, f"sp_fit_rank{rank}.log")):
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = select.launches
+    exchanges, syncs = shards.exchanges - exchanges, all_reduce_sum.calls - syncs
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    shards._send_recv = send_recv
+
+    def zeros(spec):
+        return {shards.ranks[r]: torch.zeros(shape, dtype=dt, device=trainer.device)
+                for r, (shape, dt) in spec.items()}
+
+    bufs = [(zeros(sends), zeros(recvs)) for sends, recvs in recorded]
+    nbytes = sum(t.numel() * t.element_size() for pair in bufs for d in pair for t in d.values())
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for sends, recvs in bufs:
+            exchange(sends, recvs, shards.group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    result = trainer._last_val_result
+    torch.save(_flat_state(trainer.state).cpu(), os.path.join(root, f"sp_final_rank{rank}.pt"))
+    return {
+        "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+        "step_ms": [s.elapsed_time(e) for s, e in events], "fit_s": fit_s,
+        "launches": launches, "val_batches": len(trainer.val_loader),
+        "exchanges_per_step": exchanges / DP_FULL_STEPS, "syncs_per_step": syncs / DP_FULL_STEPS,
+        "recorded": len(recorded), "halo_mb": nbytes / 1e6, "halo_ms": statistics.median(times[1:]),
+        "halo_dtypes": sorted({str(dt) for s_, r_ in recorded for d in (s_, r_)
+                               for _, dt in d.values()}),
+        "peak_gib": peak_gib, "map50": float(result.get("map_50", result["map"])),
+        "rows": [trainer.train_loader.local_batch_size, IMG // 2],
+    }
+
+
+def _sp_child(work: str, *data: str) -> None:
+    """One rank of phase 10: 10a, 10c and, in 4 ranks, 10b; the results in
+    ``work/sp/w{world}_rank{r}.pt``."""
+    torch.set_num_threads(2)  # 4 ranks on the host's 8 cores
+    world = world_size()
+    res = {"10a": _sp_child_steps(make_mesh_2d(world // 2, 2)),
+           "10c": _sp_child_serve(make_mesh_2d(1, world))}
+    if world == 4:
+        torch.use_deterministic_algorithms(False)  # 10b is timed, as 8b
+        res["10b"] = _sp_child_full(*data)
+    torch.save(res, os.path.join(work, "sp", f"w{world}_rank{get_rank()}.pt"))
+
+
+def _sp_serve_reference() -> dict:
+    """10c in one process on the card: each model's detections, every NMS
+    survivor (``max_det`` = ``pre_nms_topk``), ms per image."""
+    ref = {}
+    for case in _sp_serve_cases():
+        predictor = _sp_predictor(case, DEVICE)
+        x, meta = _sp_input(predictor, case)
+        out, launches, ms = _sp_timed(lambda: predictor.infer(x))
+        pool = _sp_predictor(case, DEVICE, max_det=predictor.pre_nms_topk).infer(x)
+        ref[case["name"]] = {"out": out, "ms": ms, "meta": meta, "predictor": predictor,
+                             "pool": {k: v.cpu() for k, v in pool.items()},
+                             "golden": case.get("golden")}
+        if "golden" not in case:
+            ref[case["name"]]["select"] = _sp_select_check(
+                predictor, x, f"10c {case['name']} one process")
+    return ref
+
+
+def _sp_same(got: dict, want: dict, pool: dict, label: str) -> bool:
+    """``got`` against one process's ``want`` at SP_SCORE_RTOL / SP_BOX_TOL:
+    valid flags and scores slot by slot, and each detection a distinct
+    one-process NMS survivor (``pool``) of the same class, box and score, so
+    that near-equal scores may come in another order. True when bitwise
+    equal."""
+    g, w, p = ({k: v.numpy() for k, v in d.items()} for d in (got, want, pool))
+    if not np.array_equal(g["valid"], w["valid"]):
+        raise AssertionError(f"{label}: valid flags differ")
+    for b in range(len(w["valid"])):
+        v = w["valid"][b]
+        if not np.allclose(g["scores"][b][v], w["scores"][b][v], rtol=SP_SCORE_RTOL, atol=0):
+            raise AssertionError(f"{label}: scores differ")
+        left = [(c, bx, sc) for c, bx, sc, ok in zip(p["classes"][b], p["boxes"][b],
+                                                     p["scores"][b], p["valid"][b]) if ok]
+        for c, bx, sc in zip(g["classes"][b][v], g["boxes"][b][v], g["scores"][b][v]):
+            hit = next((i for i, (wc, wb, ws) in enumerate(left)
+                        if wc == c and np.allclose(bx, wb, **SP_BOX_TOL)
+                        and np.isclose(sc, ws, rtol=SP_SCORE_RTOL, atol=0)), None)
+            if hit is None:
+                raise AssertionError(f"{label}: no one-process detection of class {c}, box {bx}")
+            left.pop(hit)
+    return all(np.array_equal(g[k], w[k]) for k in g)
+
+
+def phase_spatial(work: str, full: dict, dp: dict) -> dict:
+    """Phase 10: hybrid data x spatial training and height-sharded serving
+    in gloo ranks on the one card (2 ranks, then 4), against one process in
+    this one."""
+    os.makedirs(os.path.join(work, "sp"), exist_ok=True)
+    batch = _seeded_train_batch(8, 160, 3, seed=5)
+    solo = _golden_run(DEVICE, [batch, batch])
+    serve_ref = _sp_serve_reference()
+    root = dp["data"][0]
+    ranks = {}
+    for world in SP_WORLDS:
+        t0 = time.perf_counter()
+        _dp_wait(work, _dp_spawn(work, f"sp{world}_", "10", world, work, *dp["data"]),
+                 f"10 ({world} ranks)", timeout=SP_TIMEOUT)
+        ranks[world] = [torch.load(os.path.join(work, "sp", f"w{world}_rank{r}.pt"),
+                                   weights_only=False) for r in range(world)]
+        print(f"phase 10 {world} gloo ranks on one card: {time.perf_counter() - t0:.1f} s")
+
+    # 10a: each rank against one process; the ranks bitwise equal
+    n_params = sum(p.numel() for p in build_model("n", num_classes=3, device="cpu").parameters())
+    for world in SP_WORLDS:
+        res = [x["10a"] for x in ranks[world]]
+        worst_loss = worst_state = 0.0
+        for r, x in enumerate(res):
+            got, want = x["metrics"], solo["metrics"]
+            if got[0]["skipped_nonfinite"] or got[0]["num_fg"] != want[0]["num_fg"] or not (
+                    want[0]["num_fg"] > 0):
+                raise AssertionError(f"10a: rank {r} of {world} step 1 {got[0]} vs {want[0]}")
+            for k in ("loss_box", "loss_cls", "loss_dfl", "total_loss"):
+                rel = abs(got[0][k] - want[0][k]) / abs(want[0][k])
+                worst_loss = max(worst_loss, rel)
+                if not rel <= SP_LOSS_RTOL:
+                    raise AssertionError(f"10a: rank {r} of {world} step 1 {k} {got[0][k]} vs "
+                                         f"{want[0][k]}")
+            if not torch.allclose(x["flat"][0], solo["flat"][0], **STEP_STATE_TOL):
+                raise AssertionError(f"10a: rank {r} of {world} state after step 1 differs by "
+                                     f"{(x['flat'][0] - solo['flat'][0]).abs().max().item()}")
+            worst_state = max(worst_state, (x["flat"][0] - solo["flat"][0]).abs().max().item())
+            a, b = x["flat"][1][:n_params], solo["flat"][1][:n_params]
+            param_rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+            fg_gap = abs(got[1]["num_fg"] - want[1]["num_fg"])
+            loss2_rel = abs(got[1]["total_loss"] - want[1]["total_loss"]) / abs(want[1]["total_loss"])
+            if not (got[1]["num_fg"] > 0 and fg_gap <= SP_STEP2_FG
+                    and loss2_rel <= SP_STEP2_LOSS_RTOL and param_rel < SP_STEP2_PARAM_REL):
+                raise AssertionError(f"10a: rank {r} of {world} step 2: num_fg {got[1]['num_fg']} "
+                                     f"vs {want[1]['num_fg']}, loss rel {loss2_rel}, params rel "
+                                     f"{param_rel}")
+        for x in res[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(x["moments"], res[0]["moments"])):
+                raise AssertionError(f"10a: the {world} ranks' states differ")
+        d = world // 2
+        print(f"phase 10a hybrid data x spatial f32 (TF32 off, deterministic algorithms) on the "
+              f"card, ({d}, 2) mesh = {world} gloo ranks, golden yolov8-n 160px, 6a's batch of 8 "
+              f"and recipe, 2 steps vs one process: step 1 loss terms max rel err "
+              f"{worst_loss:.2e} (<= {SP_LOSS_RTOL}), num_fg {res[0]['metrics'][0]['num_fg']:.0f} "
+              f"equal, params/stats/EMA max abs err {worst_state:.2e}; step 2 num_fg "
+              f"{res[0]['metrics'][1]['num_fg']:.0f} vs {solo['metrics'][1]['num_fg']:.0f}, loss "
+              f"rel err {loss2_rel:.2e} (< {SP_STEP2_LOSS_RTOL}), params rel norm "
+              f"{param_rel:.2e} (< {SP_STEP2_PARAM_REL}); the ranks' states bitwise equal; "
+              f"{res[0]['rows'][0]} images x {res[0]['rows'][1]} rows per rank (the 5-row P5 map "
+              f"split 2/3); {res[0]['exchanges']:.0f} exchanges per step per rank")
+
+    # 10b: the 4 ranks' (2, 2) fit against one process's first step (8b's)
+    res = [x["10b"] for x in ranks[4]]
+    for r, x in enumerate(res):
+        if len(x["metrics"]) != DP_FULL_STEPS:
+            raise AssertionError(f"10b: rank {r} ran {len(x['metrics'])} steps")
+        for i, m in enumerate(x["metrics"]):
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"10b: rank {r} step {i + 1} not finite: {m}")
+            if m["skipped_nonfinite"] != 0.0 or m["num_fg"] <= 0:
+                raise AssertionError(f"10b: rank {r} step {i + 1} skipped or without "
+                                     f"positives: {m}")
+        if x["launches"] != x["val_batches"]:
+            raise AssertionError(f"10b: rank {r} launched select {x['launches']} times for "
+                                 f"{x['val_batches']} val batches")
+        if x["map50"] != res[0]["map50"]:
+            raise AssertionError(f"10b: mAP {x['map50']} on rank {r}, {res[0]['map50']} on 0")
+    first_rel = abs(res[0]["metrics"][0]["total_loss"] - dp["solo_loss"]) / abs(dp["solo_loss"])
+    if not first_rel <= DP_FIRST_LOSS_RTOL:
+        raise AssertionError(f"10b: first step loss {res[0]['metrics'][0]['total_loss']} vs the "
+                             f"one-process {dp['solo_loss']}")
+    finals = [torch.load(os.path.join(root, f"sp_final_rank{r}.pt"), weights_only=True)
+              for r in range(4)]
+    if not all(torch.equal(f, finals[0]) for f in finals[1:]):
+        raise AssertionError("10b: the ranks' final states differ")
+    written = os.path.join(root, "sp_runs_rank0", "sp", "weights", "last.ckpt")
+    if not os.path.exists(written) or any(
+            os.path.exists(os.path.join(root, f"sp_runs_rank{r}")) for r in (1, 2, 3)):
+        raise AssertionError("10b: a rank other than 0 wrote files, or rank 0 wrote none")
+    step_ms = statistics.median(res[0]["step_ms"][2:])
+    fit_s = max(x["fit_s"] for x in res)
+    m0 = res[0]["metrics"]
+    peaks = ", ".join(f"{x['peak_gib']:.2f}" for x in res)
+    print(f"phase 10b hybrid data x spatial yolo-ms-xs nc={NC} {IMG}px bf16, global bs {BATCH} "
+          f"on a (2, 2) mesh = 4 gloo ranks on one card ({res[0]['rows'][0]} images x "
+          f"{res[0]['rows'][1]} rows each), coco_yolo_ms.yaml recipe, {DP_FULL_STEPS} steps: all "
+          f"finite, none skipped, num_fg {min(m['num_fg'] for m in m0):.0f}-"
+          f"{max(m['num_fg'] for m in m0):.0f}; first step loss {m0[0]['total_loss']:.4f} vs "
+          f"one process {dp['solo_loss']:.4f} (rel {first_rel:.2e}); ranks bitwise equal at the "
+          f"end; {step_ms:.3f} ms/step (CUDA events, median of steps 3-{DP_FULL_STEPS}; all "
+          f"{', '.join(f'{t:.1f}' for t in res[0]['step_ms'])}) beside 6c's one process "
+          f"{full['step_ms']:.3f} and 8b's 2 x 16 {dp['step_ms']:.3f} ms/step in this run; end to "
+          f"end {DP_FULL_STEPS * BATCH / fit_s:.1f} img/s ({DP_FULL_STEPS * BATCH} images over "
+          f"the whole fit's {fit_s:.2f} s, validation and checkpoint included); halo exchanges "
+          f"{res[0]['exchanges_per_step']:.0f} per step per rank, the third step's "
+          f"{res[0]['recorded']} replayed alone {res[0]['halo_ms']:.3f} ms on rank 0 "
+          f"({res[0]['halo_mb']:.2f} MB sent + received, {'/'.join(res[0]['halo_dtypes'])}, "
+          f"host clock, median of 5); BatchNorm all-reduces {res[0]['syncs_per_step']:.0f} per "
+          f"step; peak memory per rank {peaks} GiB "
+          f"beside 8b's {', '.join(f'{g:.2f}' for g in dp['peak_gib'])} GiB; validation "
+          f"sharded over data only ({res[0]['val_batches']} val batches, select launches per "
+          f"rank {', '.join(str(x['launches']) for x in res)}), mAP@0.5 {res[0]['map50']:.4f} "
+          f"on every rank; only rank 0 wrote files")
+
+    # 10c: each model on S ranks against one process; the goldens' detections
+    serve_launches = 0
+    for world in SP_WORLDS:
+        for name, ref in serve_ref.items():
+            outs = [x["10c"][name] for x in ranks[world]]
+            exact = True
+            for r, x in enumerate(outs):
+                exact &= _sp_same(x["out"], ref["out"], ref["pool"], f"10c {name} S={world} rank {r}")
+                if x["launches"] != [1] * SP_SERVE_CALLS:
+                    raise AssertionError(f"10c {name}: rank {r} select launches {x['launches']}")
+                serve_launches += sum(x["launches"])
+            n = int(ref["out"]["valid"].sum())
+            matched = ""
+            if ref["golden"]:
+                with open(os.path.join(ref["golden"], "fixture_000_detections.json")) as f:
+                    golden = json.load(f)
+                for x in outs:
+                    out = {k: v.numpy() for k, v in x["out"].items()}
+                    match_golden(ref["predictor"]._to_detections(out, 0, ref["meta"]), golden)
+                matched = ", the checked-in golden detections matched on every rank"
+            if "select" in ref:
+                hws = "/".join(str(hw) for hw in ref["select"]["hw"])
+                matched = (f"; select vs select_scales_plain on the served f32 maps (B=1, HW "
+                           f"{hws}, nc={NC}): mx, cid equal, ltrb max err "
+                           f"{ref['select']['err']:.3e} one process, "
+                           f"{max(x['select']['err'] for x in outs):.3e} on the {world} ranks' "
+                           f"gathered maps (<= {LTRB_ATOL[torch.float32]}; route "
+                           f"{ref['select']['routes']})")
+            print(f"phase 10c serve {name} height-sharded over S={world} gloo ranks, f32 (TF32 "
+                  f"off): {n} detections on every rank, equal to one process "
+                  f"({'bitwise' if exact else 'within the tolerances'}){matched}; select launches "
+                  f"1 per call per rank; {outs[0]['exchanges']:.0f} exchanges per call; "
+                  f"{outs[0]['ms']:.3f} ms/image (host clock, median of {SP_SERVE_CALLS - 1}, "
+                  f"rank 0) vs one process {ref['ms']:.3f} ms/image")
+    return {"train_spatial_validate": sum(x["launches"] for x in res),
+            "serve_height_sharded": serve_launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
@@ -2181,10 +2628,12 @@ def main() -> int:
         phase_preempt(work)
         phase_analyze(work)
         phase_dp_equality(work)
-        tools["train_dp_validate"] = phase_dp_full(work, full)["launches"]
+        dp = phase_dp_full(work, full)
+        tools["train_dp_validate"] = dp["launches"]
         phase_dp_preempt(work)
         phase_nccl(work)
         tools.update(phase_program(work, runs[0], full))
+        tools.update(phase_spatial(work, full, dp))
 
     # one batch of the flagship, one launch
     sel = runs[0]["select"]

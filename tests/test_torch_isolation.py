@@ -74,6 +74,7 @@ def test_port_imports_no_jax_flax_triton_or_jax_package():
         "yolo_ms_tpu_torch.parallel",
         "yolo_ms_tpu_torch.parallel.distributed",
         "yolo_ms_tpu_torch.parallel.mesh",
+        "yolo_ms_tpu_torch.parallel.spatial",
         "yolo_ms_tpu_torch.parallel.dryrun",
     }
     assert expected <= set(result["imported"])

@@ -89,7 +89,7 @@ def test_one_process_no_ops(monkeypatch):
     D.leave_group()
     assert D.process_info()["process_count"] == 1
     assert shard_batch({"a": np.arange(4)})["a"].tolist() == [0, 1, 2, 3]
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="need 2 devices for a 1x2 mesh, have 1"):
         make_mesh_2d(1, 2)
 
 
@@ -248,6 +248,12 @@ def test_batch_norm_group_is_the_callers():
     assert DetectionLoss(num_classes=2).group is None
 
 
-def test_two_rank_dryrun():
+def test_two_rank_dryrun(capsys):
     result = dryrun_data_parallel(2, timeout_s=180)
     assert result["num_fg"] > 0 and result["loss_rel_err"] <= 1e-4
+    # the hybrid leg: a (1, 2) data x spatial step against the pure DP one
+    hybrid = result["hybrid"]
+    assert hybrid["mesh"] == [1, 2]
+    assert abs(hybrid["total_loss"] - result["total_loss"]) < 1e-3 * max(
+        1.0, abs(result["total_loss"]))
+    assert "dry run hybrid OK: (1, 2) (data, spatial) mesh" in capsys.readouterr().out

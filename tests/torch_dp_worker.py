@@ -322,10 +322,138 @@ def mode_idle(data_root: str, exp: str) -> None:
     sys.exit(99)  # the signal never came
 
 
+# ------------------------------------------------------- height sharding
+
+
+def mode_spatial_serve(io_dir: str) -> None:
+    """``spatial_serve.pt``'s model and batch served height-sharded over all
+    ranks (a (1, world) mesh): the detections, and the raw maps of the
+    sharded forward (gathered to full height by the head)."""
+    import torch
+
+    from yolo_ms_tpu_torch.infer.program import ServingProgram
+    from yolo_ms_tpu_torch.models.registry import build_model
+    from yolo_ms_tpu_torch.nn.blocks import set_spatial_group
+    from yolo_ms_tpu_torch.parallel.distributed import get_rank, world_size
+    from yolo_ms_tpu_torch.parallel.mesh import make_mesh_2d
+    from yolo_ms_tpu_torch.parallel.spatial import serve_height_sharded
+
+    inp = torch.load(os.path.join(io_dir, "spatial_serve.pt"), weights_only=False)
+    mesh = make_mesh_2d(1, world_size())
+    model = build_model(inp["arch"], num_classes=inp["nc"], device="cpu")
+    model.load_state_dict(inp["sd"], strict=True)
+    set_spatial_group(model, mesh)
+    images = torch.from_numpy(inp["images"])  # NHWC f32, the same on every rank
+    with torch.no_grad():
+        out = serve_height_sharded(
+            ServingProgram(model, inp["nc"], dtype=torch.float32, **inp["post"]), images, mesh)
+        with mesh.shards.rows(images.shape[1]):
+            maps = model(mesh.shards.own_rows(images, 1).permute(0, 3, 1, 2).contiguous())
+    torch.save({"out": out, "maps": [m.permute(0, 2, 3, 1) for m in maps],
+                "exchanges": mesh.shards.exchanges},
+               os.path.join(io_dir, f"spatial_serve_rank{get_rank()}.pt"))
+
+
+def spatial_step_setup(sd: dict, nc: int, mesh=None, arch: str = "n"):
+    """``arch`` from ``sd`` with the JAX spatial test's SGD (weight decay 0,
+    no EMA) and its f32 train step; hybrid data x spatial over ``mesh``
+    (``Mesh.attach``), or one process without it."""
+    from yolo_ms_tpu_torch.models.registry import build_model
+    from yolo_ms_tpu_torch.train.loss import DetectionLoss
+    from yolo_ms_tpu_torch.train.optim import build_optimizer
+    from yolo_ms_tpu_torch.train.trainer import TrainState, make_train_step
+    from yolo_ms_tpu_torch.utils.config import TrainingConfig
+
+    model = build_model(arch, num_classes=nc, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    tx, _ = build_optimizer(TrainingConfig(batch_size=8, epochs=1, weight_decay=0.0,
+                                           optimizer="sgd"), 10)
+    state = TrainState.create(model, tx, ema=False)
+    loss = DetectionLoss(num_classes=nc)
+    if mesh is not None:
+        loss = mesh.attach(state.model, loss)
+    return state, make_train_step(loss, tx, mesh=mesh)
+
+
+def mode_spatial_step(io_dir: str, data: str, spatial: str) -> None:
+    """The hybrid train step on a (data, spatial) mesh for each batch of
+    ``spatial_step.pt``, from its weights: the metrics and the flat state
+    after every step, and the exchanges this rank took part in."""
+    import numpy as np
+    import torch
+
+    from yolo_ms_tpu_torch.parallel.distributed import get_rank
+    from yolo_ms_tpu_torch.parallel.mesh import hybrid_batch_sharding, make_mesh_2d
+
+    inp = torch.load(os.path.join(io_dir, "spatial_step.pt"), weights_only=False)
+    mesh = make_mesh_2d(int(data), int(spatial))
+    state, step = spatial_step_setup(inp["sd"], inp["nc"], mesh, inp["arch"])
+    local = {k: torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+             for k, v in hybrid_batch_sharding(mesh)(inp["batch"]).items()}
+    out = {"metrics": [], "flat": [], "rows": tuple(local["images"].shape)}
+    for _ in range(inp["steps"]):
+        m = step(state, local)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["flat"].append(torch.cat([state.params, state.stats]).clone())
+    out["exchanges"] = mesh.shards.exchanges
+    torch.save(out, os.path.join(io_dir, f"spatial_step_{data}x{spatial}_rank{get_rank()}.pt"))
+
+
+def mode_spatial_trainer(data_root: str, exp: str, spatial: str) -> None:
+    """``Trainer.fit`` + ``validate`` with ``parallel.spatial`` (the JAX
+    package's ``tests/test_train_e2e.py`` tiny config), each rank logging
+    under its own ``runs_rank{r}``: one RESULT line, the final state in
+    ``{exp}_rank{r}_final.pt``."""
+    import numpy as np
+    import torch
+
+    from yolo_ms_tpu_torch.parallel.distributed import get_rank
+    from yolo_ms_tpu_torch.train.trainer import Trainer
+    from yolo_ms_tpu_torch.utils.config import Config
+
+    rank = get_rank()
+    images, ann = os.path.join(data_root, "images"), os.path.join(data_root, "annotations.json")
+    cfg = Config.from_dict({
+        "dataset": {"train_images_path": images, "train_annotations_path": ann,
+                    "val_images_path": images, "val_annotations_path": ann,
+                    "num_classes": 2, "max_gt": 8, "gt_buckets": [4]},
+        "model": {"architecture": "n", "input_size": [64, 64]},
+        "training": {"batch_size": 8, "epochs": 1, "learning_rate": 1e-3, "optimizer": "adam",
+                     "weight_decay": 0.0, "val_interval": 2, "experiment_name": exp,
+                     "log_dir": os.path.join(data_root, f"runs_rank{rank}"),
+                     "augmentation": {"fliplr": 0.5},
+                     "scheduler": {"type": "cosine", "cosine_t_max": 2}},
+        "evaluation": {"batch_size": 8, "confidence_threshold": 0.05},
+        "parallel": {"spatial": int(spatial)},
+        "device": "cpu", "workers": 1,
+    })
+    trainer = Trainer(cfg, verbose=False)
+    inner, metrics = trainer._train_step, []
+
+    def step(state, batch):
+        m = inner(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return m
+
+    trainer._train_step = step
+    trainer.fit()
+    m = trainer.validate()
+    mesh = trainer.mesh
+    print("RESULT " + json.dumps({
+        "mesh": None if mesh is None else [mesh.data, mesh.spatial], "steps": int(trainer.state.step),
+        "metrics": metrics, "map": None if np.isnan(m) else float(m),
+        "val_images_local": trainer._val_images_local,
+        "exchanges": None if mesh is None else mesh.shards.exchanges,
+    }), flush=True)
+    torch.save(trainer.state.state_dict(), os.path.join(data_root, f"{exp}_rank{rank}_final.pt"))
+
+
 if __name__ == "__main__":
     _setup()
     {"helpers": mode_helpers, "bn_block": mode_bn_block, "bn_model": mode_bn_model,
-     "step": mode_step, "trainer": mode_trainer, "idle": mode_idle}[sys.argv[1]](*sys.argv[2:])
+     "step": mode_step, "trainer": mode_trainer, "idle": mode_idle,
+     "spatial_serve": mode_spatial_serve, "spatial_step": mode_spatial_step,
+     "spatial_trainer": mode_spatial_trainer}[sys.argv[1]](*sys.argv[2:])
     from yolo_ms_tpu_torch.parallel.distributed import leave_group
 
     leave_group()

@@ -19,6 +19,7 @@ from yolo_ms_tpu_torch.nn.blocks import (
     ConvBnSiLU,
     MSBlock,
     MSFusion,
+    sharded_rows,
     upsample2x,
     yolo_params,
 )
@@ -188,6 +189,8 @@ class V8MSBackbone(nn.Module):
 class V8MSNeck(nn.Module):
     """v8 PAFPN (plain concats) with MSBlock stages."""
 
+    spatial_rows = None
+
     def __init__(self, version: str, use_se: bool = False):
         super().__init__()
         depth, width, ratio = yolo_params(version)
@@ -210,8 +213,8 @@ class V8MSNeck(nn.Module):
 
     def forward(self, p3, p4, p5):
         res_1 = p5
-        res_2 = self.stage_1(torch.cat([upsample2x(p5), p4], dim=1))
-        out1 = self.stage_2(torch.cat([upsample2x(res_2), p3], dim=1))
+        res_2 = self.stage_1(torch.cat([upsample2x(p5, sharded_rows(self, 2)), p4], dim=1))
+        out1 = self.stage_2(torch.cat([upsample2x(res_2, sharded_rows(self, 1)), p3], dim=1))
         out2 = self.stage_3(torch.cat([self.conv1(out1), res_2], dim=1))
         out3 = self.stage_4(torch.cat([self.conv2(out2), res_1], dim=1))
         return out1, out2, out3

@@ -22,6 +22,7 @@ from yolo_ms_tpu_torch.nn.blocks import (
     C2f,
     SPPF,
     ConvBnSiLU,
+    sharded_rows,
     upsample2x,
     yolo_params,
 )
@@ -69,6 +70,8 @@ class Backbone(nn.Module):
 class Neck(nn.Module):
     """PAFPN: top-down FPN + bottom-up PAN."""
 
+    spatial_rows = None
+
     def __init__(self, version: str):
         super().__init__()
         depth, width, ratio = yolo_params(version)
@@ -84,8 +87,8 @@ class Neck(nn.Module):
 
     def forward(self, p3, p4, p5):
         res_1 = p5
-        res_2 = self.c2f_1(torch.cat([upsample2x(p5), p4], dim=1))
-        out1 = self.c2f_2(torch.cat([upsample2x(res_2), p3], dim=1))
+        res_2 = self.c2f_1(torch.cat([upsample2x(p5, sharded_rows(self, 2)), p4], dim=1))
+        out1 = self.c2f_2(torch.cat([upsample2x(res_2, sharded_rows(self, 1)), p3], dim=1))
         out2 = self.c2f_3(torch.cat([self.conv1(out1), res_2], dim=1))
         out3 = self.c2f_4(torch.cat([self.conv2(out2), res_1], dim=1))
         return out1, out2, out3
@@ -94,6 +97,8 @@ class Neck(nn.Module):
 class _HeadBranch(nn.Module):
     """ConvBnSiLU 3x3 -> ConvBnSiLU 3x3 -> 1x1 conv with bias ``pred``,
     whose bias starts at the detection prior."""
+
+    spatial_rows = None
 
     def __init__(self, c_in: int, mid: int, out: int, bias_prior: float = 0.0):
         super().__init__()
@@ -104,13 +109,19 @@ class _HeadBranch(nn.Module):
         nn.init.constant_(self.pred.bias, bias_prior)
 
     def forward(self, x):
-        return self.pred(self.conv2(self.conv1(x)))
+        x = self.conv2(self.conv1(x))
+        rows = sharded_rows(self)
+        return rows.conv2d(self.pred, x) if rows else self.pred(x)
 
 
 class DetectHead(nn.Module):
     """Decoupled anchor-free head: per scale a box branch to 4*reg_max
     channels and a class branch to nc channels. Its widths follow the
-    input features (the JAX head's ``version`` field is unused there)."""
+    input features (the JAX head's ``version`` field is unused there).
+    Height-sharded, each map is gathered to full height on every rank of
+    the spatial group; the 1x1 ``pred`` needs no rows beyond its own."""
+
+    spatial_rows = None
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
                  reg_max: int = 16):
@@ -132,6 +143,9 @@ class DetectHead(nn.Module):
         for i, f in enumerate(feats):
             box = getattr(self, f"box_{i}")(f)
             cls = getattr(self, f"cls_{i}")(f)
+            rows = sharded_rows(self, i)
+            if rows:
+                box, cls = rows.gather(box), rows.gather(cls)
             outs.append((box, cls) if split else torch.cat([box, cls], dim=1))
         return tuple(outs)
 

@@ -14,6 +14,15 @@ Deploy structure (BN folded into the conv) is a property of the module,
 not a global context: ``ConvBnSiLU.to_deploy()`` gives the conv a bias and
 drops its BatchNorm (``models/deploy.py`` folds the state_dict to match).
 
+Height sharding (``set_spatial_group``): the JAX package splits the image
+height over a mesh axis and GSPMD inserts the halo exchanges. Here every
+module that reads rows beyond its own (a conv of kernel > 1, a max pool, an
+upsample, the ``SqueezeExcite`` mean, the head's maps), or that cannot take
+the empty shard of a level with fewer rows than ranks (every conv), holds a
+``spatial_rows`` handle per input (``parallel/spatial.py:Rows``), None by
+default; it exchanges rows only inside a sharded forward and runs its plain
+op otherwise.
+
 XLA-only constructs of the JAX package are not ported:
 - ``optimization_barrier`` / ``dw_isolation`` (fusion fences for XLA) are
   the identity here;
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolo_ms_tpu_torch.parallel.distributed import all_reduce_sum
+from yolo_ms_tpu_torch.parallel.spatial import Rows
 
 # BatchNorm constants of the reference (components.py:73).
 BN_EPS = 1e-3
@@ -118,6 +128,58 @@ def set_batch_norm_group(model: nn.Module, group) -> nn.Module:
     return model
 
 
+# the height of the probe image through which ``set_spatial_group`` finds
+# each site's stride: every model's five stride-2 levels divide it
+SPATIAL_PROBE = 64
+
+
+def set_spatial_group(model: nn.Module, mesh) -> nn.Module:
+    """Make ``model`` run height-sharded over the spatial group of
+    ``mesh`` (``parallel/mesh.py:make_mesh_2d``) inside
+    ``mesh.shards.rows(image_h)``, and plain outside it; a mesh whose
+    spatial axis is 1, or None, makes it plain everywhere. Returns
+    ``model``.
+
+    Each site learns the stride of its inputs (image rows per map row) from
+    one no-grad eval forward of a ``SPATIAL_PROBE``-high image, run plain;
+    during a sharded forward its level is ``image_h // stride`` rows high.
+    The BatchNorm statistics need no site: under ``set_batch_norm_group``
+    with the world group, they are sums and counts over both axes, and an
+    empty shard adds 0 to each."""
+    sites = [m for m in model.modules() if hasattr(m, "spatial_rows")]
+    for m in sites:
+        m.spatial_rows = None
+    if mesh is None or mesh.spatial == 1:
+        return model
+    heights = {}
+
+    def record(module, args):
+        flat = [a for x in args for a in (x if isinstance(x, (tuple, list)) else (x,))]
+        heights.setdefault(module, [a.shape[2] for a in flat if isinstance(a, torch.Tensor)])
+
+    hooks = [m.register_forward_pre_hook(record) for m in sites]
+    p = next(model.parameters())
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, 3, SPATIAL_PROBE, SPATIAL_PROBE, dtype=p.dtype,
+                                     device=p.device))
+    finally:
+        model.train(was_training)
+        for h in hooks:
+            h.remove()
+    for m in sites:
+        m.spatial_rows = [Rows(mesh.shards, SPATIAL_PROBE // h) for h in heights[m]]
+    return model
+
+
+def sharded_rows(module: nn.Module, i: int = 0) -> Rows | None:
+    """The ``Rows`` of input ``i`` of ``module`` inside a sharded forward,
+    else None."""
+    rows = module.spatial_rows
+    return rows[i] if rows is not None and rows[i].active else None
+
+
 class ConvBnSiLU(nn.Module):
     """Conv2d(bias=False) -> BatchNorm2d(eps 1e-3) -> SiLU (optional).
 
@@ -125,6 +187,8 @@ class ConvBnSiLU(nn.Module):
     every side, stride 1 or 2, as in the JAX block. After ``to_deploy()``
     the conv carries a bias and there is no BatchNorm.
     """
+
+    spatial_rows = None
 
     def __init__(
         self,
@@ -161,7 +225,8 @@ class ConvBnSiLU(nn.Module):
         self.bn = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        rows = sharded_rows(self)
+        x = rows.conv2d(self.conv, x) if rows else self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return F.silu(x) if self.act else x
@@ -205,14 +270,18 @@ class C2f(nn.Module):
         return self.conv2(torch.cat(outputs, dim=1))
 
 
-def maxpool_same(x: torch.Tensor, window: int) -> torch.Tensor:
+def maxpool_same(x: torch.Tensor, window: int, rows: Rows | None = None) -> torch.Tensor:
     """Stride-1 same-padded max pool; the padding is -inf (max_pool2d's
-    implicit padding), as the JAX reduce_window."""
+    implicit padding), as the JAX reduce_window. ``rows``: height-sharded."""
+    if rows is not None:
+        return rows.max_pool(x, window)
     return F.max_pool2d(x, window, stride=1, padding=window // 2)
 
 
 class SPPF(nn.Module):
     """1x1 reduce -> 3 chained kxk/s1 max pools -> concat -> 1x1."""
+
+    spatial_rows = None
 
     def __init__(self, c_in: int, features: int, kernel_size: int = 5):
         super().__init__()
@@ -222,15 +291,19 @@ class SPPF(nn.Module):
         self.conv2 = ConvBnSiLU(4 * hidden, features, 1)
 
     def forward(self, x):
+        rows = sharded_rows(self)
         x = self.conv1(x)
-        x1 = maxpool_same(x, self.kernel_size)
-        x2 = maxpool_same(x1, self.kernel_size)
-        x3 = maxpool_same(x2, self.kernel_size)
+        x1 = maxpool_same(x, self.kernel_size, rows)
+        x2 = maxpool_same(x1, self.kernel_size, rows)
+        x3 = maxpool_same(x2, self.kernel_size, rows)
         return self.conv2(torch.cat([x, x1, x2, x3], dim=1))
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample (pixel duplication), NCHW."""
+def upsample2x(x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample (pixel duplication), NCHW. ``rows``:
+    height-sharded."""
+    if rows is not None:
+        return rows.upsample2x(x)
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
@@ -260,6 +333,8 @@ class SqueezeExcite(nn.Module):
     """Global-average squeeze -> 1x1 reduce (SiLU) -> 1x1 expand -> sigmoid
     gate. Plain biased convs, so BN folding passes through unchanged."""
 
+    spatial_rows = None
+
     def __init__(self, features: int, ratio: float = 0.25):
         super().__init__()
         hidden = max(8, int(features * ratio))
@@ -267,7 +342,8 @@ class SqueezeExcite(nn.Module):
         self.expand = nn.Conv2d(hidden, features, 1)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+        rows = sharded_rows(self)
+        s = rows.mean(x) if rows else x.mean(dim=(2, 3), keepdim=True)
         s = self.expand(F.silu(self.reduce(s)))
         return x * torch.sigmoid(s)
 
@@ -329,6 +405,8 @@ class MSBlock(nn.Module):
 class MSSPPF(nn.Module):
     """SPPF with a 3x3 depthwise mixer ahead of the pooling chain."""
 
+    spatial_rows = None
+
     def __init__(self, c_in: int, features: int, kernel_size: int = 5):
         super().__init__()
         hidden = c_in // 2
@@ -338,10 +416,11 @@ class MSSPPF(nn.Module):
         self.conv2 = ConvBnSiLU(4 * hidden, features, 1)
 
     def forward(self, x):
+        rows = sharded_rows(self)
         x = self.dw(self.conv1(x))
-        x1 = maxpool_same(x, self.kernel_size)
-        x2 = maxpool_same(x1, self.kernel_size)
-        x3 = maxpool_same(x2, self.kernel_size)
+        x1 = maxpool_same(x, self.kernel_size, rows)
+        x2 = maxpool_same(x1, self.kernel_size, rows)
+        x3 = maxpool_same(x2, self.kernel_size, rows)
         return self.conv2(torch.cat([x, x1, x2, x3], dim=1))
 
 
@@ -352,11 +431,13 @@ class MSFusion(nn.Module):
     (``_UpsampleConcatConv1x1``); here it is the plain upsample + concat +
     conv on the same parameters."""
 
+    spatial_rows = None
+
     def __init__(self, c_in: int, features: int):
         super().__init__()
         self.fuse = ConvBnSiLU(c_in, features, 1)
 
     def forward(self, a, b, upsample_a: bool = False):
         if upsample_a:
-            a = upsample2x(a)
+            a = upsample2x(a, sharded_rows(self))
         return self.fuse(torch.cat([a, b], dim=1))

@@ -125,6 +125,28 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
+def exchange(sends: dict, recvs: dict, group) -> None:
+    """Point-to-point within ``group``: send ``sends[r]`` to (global) rank
+    ``r`` and fill ``recvs[r]`` from rank ``r``, every message posted as one
+    batch (``batch_isend_irecv``) and then waited for. Both sides must post
+    matching pairs, in the same order on every rank. Under nccl the batch is
+    one NCCL group, so that a send and a receive between the same two ranks
+    cannot wait on each other on one stream; under gloo a CUDA tensor
+    travels through the host (gloo's send and recv take CPU tensors only) in
+    its own dtype. A failed message raises."""
+    dev = _comm_device()
+    staged = {r: b if b.device == dev else torch.empty_like(b, device=dev)
+              for r, b in recvs.items()}
+    outgoing = {r: t.to(dev).contiguous() for r, t in sends.items()}
+    ops = [dist.P2POp(dist.irecv, b, r, group) for r, b in staged.items()]
+    ops += [dist.P2POp(dist.isend, t, r, group) for r, t in outgoing.items()]
+    for w in dist.batch_isend_irecv(ops) if ops else []:
+        w.wait()
+    for r, b in recvs.items():
+        if staged[r] is not b:
+            b.copy_(staged[r])
+
+
 def global_max_int(value: int) -> int:
     """``max(value)`` over all processes, by one MAX all-reduce (one process:
     the identity). For per-batch choices every rank must make alike, such

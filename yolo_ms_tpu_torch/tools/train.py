@@ -11,6 +11,13 @@ batch, split evenly over the ranks)::
     torchrun --nproc_per_node=N -m yolo_ms_tpu_torch.tools.train --config cfg.yaml
 
 One rank per card over NCCL (the CPU, ``device: "cpu"``, uses gloo).
+
+Hybrid data x spatial: ``parallel: {spatial: S}`` in the config splits the
+image height over S ranks and the batch over the N / S data rows (S must
+divide N, the input height and every multiscale size). Ranks that share
+one card need gloo, which this CLI does not pick: start them from code
+with ``maybe_initialize_distributed("gloo")`` before the ``Trainer`` is
+built.
 """
 
 from __future__ import annotations

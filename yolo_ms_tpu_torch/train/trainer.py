@@ -51,10 +51,23 @@ JAX trainer's ``_globalize`` (assembling a global array from each host's
 rows) becomes ``_to_device``, since each rank's rows are already on its own
 device, and ``_run_synced`` (fencing each new XLA compile with a barrier)
 becomes a plain call, since nothing compiles per shape here.
+
+Hybrid data x spatial (``parallel.spatial = S > 1``, the JAX trainer's 2-D
+mesh): the ranks form a (world / S, S) mesh (``parallel/mesh.py``). The S
+ranks of one data row decode the same rows of the global batch and each
+takes its band of the image height (``spatial_sharding``); the model
+exchanges halo rows around every conv and pool and gathers the head's maps
+to full height (``nn/blocks.py:set_spatial_group``), so that every rank of
+the row computes that row's loss. BatchNorm and the gradient sum over the
+world, the loss normalizer and metrics over the data group
+(``Mesh.attach``). Validation is sharded over ``data`` only, as in JAX:
+the ranks of one data row decode and serve the same rows at full height,
+and the detections are gathered over the data group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -89,6 +102,7 @@ from yolo_ms_tpu_torch.parallel.distributed import (
     rank_device,
     world_size,
 )
+from yolo_ms_tpu_torch.parallel.mesh import make_mesh_2d, spatial_sharding
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer, freeze_mask
 from yolo_ms_tpu_torch.utils.checkpoint import (
@@ -213,7 +227,7 @@ def _precision(compute_dtype: torch.dtype, device: torch.device):
 
 
 def make_train_step(loss_fn: DetectionLoss, tx, ema_decay: float = 0.0,
-                    compute_dtype: torch.dtype = torch.float32, group=None):
+                    compute_dtype: torch.dtype = torch.float32, group=None, mesh=None):
     """Build ``train_step(state, batch) -> metrics``, the counterpart of the
     JAX package's pure step: it updates ``state`` in place and returns the
     loss terms, ``num_fg`` and ``skipped_nonfinite`` as device scalars.
@@ -232,17 +246,34 @@ def make_train_step(loss_fn: DetectionLoss, tx, ema_decay: float = 0.0,
     all-reduce) before the optimizer. A step whose collective fails
     raises with the state as it was (the statistics the forward moved are
     put back), so a preempted run can still save it.
+
+    On a 2-D ``mesh`` (``parallel/mesh.py``; pass it instead of ``group``,
+    with the model given to ``mesh.attach`` and the loss it returned) the
+    gradient is summed over the world, and ``batch`` is what
+    ``hybrid_batch_sharding`` or ``spatial_sharding`` cut for this rank: its
+    band of the image rows, and the image height as ``batch["height"]``; the
+    forward runs height-sharded.
     """
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("pass the process group or the mesh, not both: the mesh "
+                             "settles the gradient's group")
+        if loss_fn.group is not mesh.data_group:
+            raise ValueError("on a mesh the loss reduces over the data group: train "
+                             "with the loss that mesh.attach returns")
+        group = data_parallel_group()
+    sharded = mesh is not None and mesh.spatial > 1
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
         images = device_normalize_images(batch["images"], compute_dtype)
         images = images.permute(0, 3, 1, 2).contiguous()
+        rows = mesh.shards.rows(batch["height"]) if sharded else contextlib.nullcontext()
         old_stats = state.stats.clone()  # the forward updates them in place
         params = list(model.parameters())
         try:
             with _precision(compute_dtype, images.device):
-                with record_function("train_step/forward"):
+                with record_function("train_step/forward"), rows:
                     raw = model(images)
                 with record_function("train_step/loss"), torch.autocast(
                         device_type=images.device.type, enabled=False):
@@ -300,11 +331,29 @@ class Trainer:
         if self.world > 1 and self.device.type == "cuda" and self.device.index is None:
             self.device = rank_device()
         mcfg, dcfg, tcfg = cfg.model, cfg.dataset, cfg.training
-        if max(1, int(cfg.parallel.spatial)) > 1:
-            raise NotImplementedError(
-                "parallel.spatial > 1: the spatial (DP x SP) mesh is not ported yet "
-                "(ROADMAP A12)")
         self.img_size = tuple(mcfg.input_size)
+        # parallel.spatial > 1: hybrid DP x SP, batch over "data", image
+        # height over "spatial" (the JAX trainer's checks and messages; the
+        # two that read only the config come first)
+        spatial = max(1, int(cfg.parallel.spatial))
+        self.mesh = None
+        if spatial > 1:
+            if self.img_size[0] % spatial:
+                raise ValueError(f"parallel.spatial={spatial} must divide the image "
+                                 f"height ({self.img_size[0]})")
+            for s in tcfg.multiscale_sizes or []:
+                if int(s) % spatial:
+                    raise ValueError(f"parallel.spatial={spatial} must divide every "
+                                     f"multiscale size (got {s})")
+            if self.world % spatial:
+                raise ValueError(f"parallel.spatial={spatial} must divide the device "
+                                 f"count ({self.world})")
+            self.mesh = make_mesh_2d(self.world // spatial, spatial)
+        # the rows of the global batch this rank's data row decodes, and
+        # the group over which the data rows' results are gathered
+        data_shard = ((self.mesh.data_index, self.mesh.data) if self.mesh
+                      else (self.rank, self.world))
+        self._data_group = self.mesh.data_group if self.mesh else self.group
         self.compute_dtype = (
             torch.bfloat16 if mcfg.compute_dtype == "bfloat16" else torch.float32
         )
@@ -319,7 +368,7 @@ class Trainer:
             gamma=cfg.loss.gamma,
             tal_topk=cfg.loss.tal_topk,
             iou_type=cfg.loss.iou_type,
-            group=self.group,
+            group=self._data_group,
         )
 
         # --- data ---
@@ -344,14 +393,17 @@ class Trainer:
                 device_normalize=True,
                 multiscale_sizes=tcfg.multiscale_sizes,
                 multiscale_interval=tcfg.multiscale_interval,
-                # batch_size is the GLOBAL batch; this rank decodes its rows
-                process_shard=(self.rank, self.world),
+                # batch_size is the GLOBAL batch; this rank decodes its data
+                # row's rows
+                process_shard=data_shard,
             )
-        # the sharded val feed (the JAX trainer's preconditions): each rank
-        # decodes and serves its image rows, the targets stay global
+        # the sharded val feed (the JAX trainer's preconditions, over the
+        # data axis only): each data row decodes and serves its image rows,
+        # the targets stay global
         self._val_images_local = (
-            self.world > 1 and cfg.evaluation.batch_size % self.world == 0
+            data_shard[1] > 1 and cfg.evaluation.batch_size % data_shard[1] == 0
         )
+        self._image_rows = spatial_sharding(self.mesh) if self.mesh else None
         if dcfg.val_annotations_path:
             val_ds = CocoDetectionDataset(
                 dcfg.val_images_path,
@@ -369,7 +421,7 @@ class Trainer:
                 num_workers=cfg.workers,
                 drop_last=False,
                 device_normalize=True,
-                process_shard=(self.rank, self.world) if self._val_images_local else None,
+                process_shard=data_shard if self._val_images_local else None,
                 shard_images_only=self._val_images_local,
             )
 
@@ -401,10 +453,15 @@ class Trainer:
             tcfg, max(1, steps_per_epoch // self.accum), trainable=trainable
         )
         self.state = TrainState.create(model, self.tx, ema=tcfg.ema_decay > 0)
-        set_batch_norm_group(self.state.model, self.group)  # not the eval-only EMA copy
+        # not the eval-only EMA copy
+        if self.mesh:
+            self.loss_fn = self.mesh.attach(self.state.model, self.loss_fn)
+        else:
+            set_batch_norm_group(self.state.model, self.group)
         self._broadcast_state()
         self._train_step = make_train_step(
-            self.loss_fn, self.tx, tcfg.ema_decay, self.compute_dtype, self.group
+            self.loss_fn, self.tx, tcfg.ema_decay, self.compute_dtype,
+            group=None if self.mesh else self.group, mesh=self.mesh,
         )
         self.start_epoch = 0
         self.start_step = 0
@@ -497,17 +554,24 @@ class Trainer:
         }
 
     def _to_device(self, host_batch: dict) -> dict:
-        return {
+        """The batch on this rank's device: under spatial > 1, its band of
+        the image rows, with the image height as ``"height"``."""
+        if self._image_rows is not None:
+            host_batch = self._image_rows(host_batch)
+        out = {
             k: torch.from_numpy(np.ascontiguousarray(host_batch[k])).to(
                 self.device, non_blocking=True
             )
             for k in BATCH_KEYS
         }
+        if "height" in host_batch:
+            out["height"] = host_batch["height"]
+        return out
 
     def _infer(self, model: nn.Module, images_u8: np.ndarray) -> dict:
         """The serving tail on a batch of images: host numpy outputs. Under
-        the sharded val feed ``images_u8`` holds this rank's rows and the
-        outputs of every rank's rows are gathered in rank order."""
+        the sharded val feed ``images_u8`` holds this data row's rows and the
+        outputs of every data row are gathered in order."""
         with torch.inference_mode(), _precision(self.compute_dtype, self.device):
             x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
             x = device_normalize_images(x, self.compute_dtype).permute(0, 3, 1, 2).contiguous()
@@ -521,7 +585,7 @@ class Trainer:
                 iou_thresh=self.cfg.evaluation.iou_threshold,
             )
             if self._val_images_local:
-                out = _gather_rows(out, self.group)
+                out = _gather_rows(out, self._data_group)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     # ------------------------------------------------------------------ #
