@@ -156,6 +156,23 @@ that fails, and without a card. Phases, each printing one line:
        checked-in detections matched on every rank; one ``select`` launch
        per call per rank; ms per image beside one process.
 
+11. the benchmark CLI's functions (``yolo_ms_tpu_torch/tools/benchmark.py``)
+    at full width, bs=32, 640², nc=80, seed-0 weights, K=10, reps 3:
+    a. ``run_benchmark(arch, 32, "e2e")`` for yolo-ms-xs and yolov8-n:
+       ``select.launches`` equal to the iterations run, warm-up included
+       (1 per iteration); iteration 0 equal to ``Predictor.infer`` built
+       here from the same draws on the same images, at the benchmark's conf
+       0.25 and at 1e-5 (9b's rules); the report beside phase 5's ``infer``
+       time; NMS sweeps per iteration;
+    b. ``forward`` of yolo-ms-xs beside phase 5's normalize + forward;
+    c. ``train`` of yolo-ms-xs (``run_benchmark``'s body, every loss kept):
+       every loss finite, the step counter equal to the iterations run;
+       beside 6c's step alone;
+    d. ``run_streaming`` of yolo-ms-xs over the 2,048-JPEG fixture, 8 decode
+       threads, depth 8: every leg, the native loader's presence, the
+       ``bound`` verdict and the derived cores per card; ``select.launches``
+       equal to the calls made, every batch served by the sustained leg.
+
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -171,9 +188,11 @@ The kernel JSON counts ``select`` launches on every path
 phase 6c, phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
 runs, phase 8b's data-parallel validation (``train_dp_validate``, both
 ranks' launches), phase 9's program calls (``program``) and
-``predict_paths`` runs (``predict_paths``), and phase 10's validation on
+``predict_paths`` runs (``predict_paths``), phase 10's validation on
 the (2, 2) mesh (``train_spatial_validate``) and height-sharded serving
-(``serve_height_sharded``), every rank's launches.
+(``serve_height_sharded``), every rank's launches, and phase 11's e2e
+benchmark runs (``benchmark_e2e``) and streaming run
+(``benchmark_streaming``).
 """
 
 from __future__ import annotations
@@ -204,7 +223,7 @@ from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.infer.program import load_program
 from yolo_ms_tpu_torch.infer.video import predict_video
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
-from yolo_ms_tpu_torch.models.registry import build_model
+from yolo_ms_tpu_torch.models.registry import build_model, init_model
 from yolo_ms_tpu_torch.nn.blocks import BatchNorm2d, set_batch_norm_group, set_spatial_group
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
 from yolo_ms_tpu_torch.ops.kernels.select import (
@@ -227,6 +246,7 @@ from yolo_ms_tpu_torch.parallel.distributed import (
 )
 from yolo_ms_tpu_torch.parallel.mesh import hybrid_batch_sharding, make_mesh_2d, shard_batch
 from yolo_ms_tpu_torch.parallel.spatial import serve_height_sharded
+from yolo_ms_tpu_torch.tools import benchmark
 from yolo_ms_tpu_torch.tools import export as tools_export
 from yolo_ms_tpu_torch.tools import test as tools_test
 from yolo_ms_tpu_torch.tools import val as tools_val
@@ -2549,6 +2569,132 @@ def phase_spatial(work: str, full: dict, dp: dict) -> dict:
             "serve_height_sharded": serve_launches}
 
 
+# ---------------------------------------------------------------- phase 11
+
+BENCH_K, BENCH_REPS = 10, 3  # the CLI's defaults
+BENCH_THREADS, BENCH_DEPTH = 8, 8
+
+
+def _bench_line(r: dict) -> str:
+    return (f"{r['steady_state_ms_per_batch']:.3f} ms/batch steady state "
+            f"({r['steady_state_img_per_s']:.1f} img/s{', clamped' if r['steady_state_clamped'] else ''}), "
+            f"{r['k_wall_ms_per_batch']:.3f} ms/batch K-wall ({r['k_wall_img_per_s']:.1f} img/s)")
+
+
+def _bench_e2e_check(arch: str) -> str:
+    """The e2e iteration 0 against a ``Predictor`` built here from the same
+    seed-0 draws on the same images: at the benchmark's conf 0.25 and, so
+    that detections exist, with both at conf 1e-5 (9b's rules)."""
+    loop = benchmark.make_loop(arch, BATCH, "e2e", IMG, NC, device="cuda")
+    model = init_model(build_model(arch, num_classes=NC, device="cpu"),
+                       torch.Generator().manual_seed(0))
+    images = np.random.default_rng(0).integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
+    x = torch.from_numpy(images).cuda()
+    said = []
+    for conf in (0.25, 1e-5):
+        predictor = Predictor(arch, model.state_dict(), NC, input_size=(IMG, IMG),
+                              conf_thresh=conf, batch_size=BATCH, dtype=torch.bfloat16,
+                              device="cuda")
+        loop.predictor.serve.conf_thresh = conf
+        got = {k: v.cpu().numpy() for k, v in loop.run(0).items()}
+        want = {k: v.cpu().numpy() for k, v in predictor.infer(x).items()}
+        box_err, score_err = _same_detections(got, want, f"11a {arch} conf {conf}")
+        said.append(f"conf {conf}: {int(want['valid'].sum())} detections, box err "
+                    f"{box_err:.1e} px, score rel err {score_err:.1e}")
+    return "; ".join(said)
+
+
+def phase_benchmark(runs: list, full: dict) -> dict:
+    """11: the benchmark CLI's functions (``tools/benchmark.py``) at full size.
+
+    a. ``run_benchmark(arch, 32, "e2e")`` at 640², nc 80, K=10, reps 3, for
+       both serving models: ``select.launches`` (set to 0 just before) equals
+       the iterations run, warm-up included; iteration 0 equals
+       ``Predictor.infer`` on the same weights and images;
+    b. ``forward`` of yolo-ms-xs;
+    c. ``train`` of yolo-ms-xs, through ``make_loop`` + ``_loop_rates`` +
+       ``benchmark_report`` (``run_benchmark``'s body) so that every
+       iteration's loss is kept: every one finite, and the step counter equal
+       to the iterations run;
+    d. ``run_streaming`` of yolo-ms-xs over the default 2,048-image fixture,
+       8 decode threads, depth 8: ``select.launches`` equals the calls made
+       (the warm-up, the device leg's warm call and batches, the sustained
+       batches; ``run_streaming`` raises unless the sustained leg served every
+       batch).
+    """
+    iters = benchmark.iterations_run(BENCH_K, BENCH_REPS)
+    by_arch = {r["arch"]: r for r in runs}
+    e2e_launches = 0
+    for arch in SERVE_ARCHS:
+        checked = _bench_e2e_check(arch)
+        select.launches = 0
+        nms_fixed.sweeps = 0
+        t0 = time.perf_counter()
+        r = benchmark.run_benchmark(arch, BATCH, "e2e", IMG, NC, BENCH_K, BENCH_REPS,
+                                    device="cuda")
+        seconds = time.perf_counter() - t0
+        launches, sweeps = select.launches, nms_fixed.sweeps
+        if launches != iters:
+            raise AssertionError(f"11a {arch}: select launched {launches} times in {iters} "
+                                 f"e2e iterations")
+        e2e_launches += launches
+        print(f"phase 11a benchmark e2e {arch} bs={BATCH} {IMG}px bf16 K={BENCH_K} "
+              f"reps={BENCH_REPS}: {_bench_line(r)}; phase 5 infer {by_arch[arch]['infer_ms']:.3f} "
+              f"ms (CUDA events); select launches {launches} in {iters} iterations; NMS sweeps "
+              f"{sweeps / iters:.2f} per iteration; iteration 0 == Predictor.infer ({checked}); "
+              f"{seconds:.1f} s; {json.dumps(r)}")
+
+    r = benchmark.run_benchmark("yolo-ms-xs", BATCH, "forward", IMG, NC, BENCH_K, BENCH_REPS,
+                                device="cuda")
+    print(f"phase 11b benchmark forward yolo-ms-xs bs={BATCH} {IMG}px bf16 (unfolded): "
+          f"{_bench_line(r)}; phase 5 normalize+forward (folded) "
+          f"{by_arch['yolo-ms-xs']['fwd_ms']:.3f} ms; {json.dumps(r)}")
+
+    loop = benchmark.make_loop("yolo-ms-xs", BATCH, "train", IMG, NC, device="cuda")
+    losses = []
+
+    def kept(i):
+        losses.append(loop(i))
+        return losses[-1]
+
+    t0 = time.perf_counter()
+    r = benchmark.benchmark_report(loop, "yolo-ms-xs", BATCH, IMG,
+                                   benchmark._loop_rates(kept, BENCH_K, BENCH_REPS, loop.device))
+    seconds = time.perf_counter() - t0
+    losses = torch.stack(losses)
+    if not (len(losses) == iters and bool(torch.isfinite(losses).all())):
+        raise AssertionError(f"11c: {len(losses)} losses, finite: {torch.isfinite(losses).all()}")
+    if int(loop.state.step) != iters:
+        raise AssertionError(f"11c: step counter {int(loop.state.step)} after {iters} iterations")
+    print(f"phase 11c benchmark train yolo-ms-xs bs={BATCH} {IMG}px bf16 autocast, Adam: "
+          f"{_bench_line(r)}; phase 6c step alone {full['alone']['event_ms']:.3f} ms (CUDA "
+          f"events); {iters} losses finite ({float(losses[0]):.4f} -> {float(losses[-1]):.4f}), "
+          f"step counter {int(loop.state.step)}; {seconds:.1f} s; {json.dumps(r)}")
+    del loop, losses
+
+    select.launches = 0
+    nms_fixed.sweeps = 0
+    t0 = time.perf_counter()
+    r = benchmark.run_streaming("yolo-ms-xs", BATCH, IMG, NC, threads=BENCH_THREADS,
+                                depth=BENCH_DEPTH, device="cuda")
+    seconds = time.perf_counter() - t0
+    n_batches = r["n_images"] // BATCH
+    calls = 2 + 2 * n_batches
+    if select.launches != calls:
+        raise AssertionError(f"11d: select launched {select.launches} times in {calls} calls")
+    print(f"phase 11d benchmark streaming yolo-ms-xs bs={BATCH} {IMG}px bf16, {r['n_images']} "
+          f"JPEGs, {BENCH_THREADS} threads, depth {BENCH_DEPTH}: sustained "
+          f"{r['sustained_img_per_s']} img/s; legs: host decode {r['host_decode_img_per_s']} "
+          f"img/s ({r['host_decode_cpu_s_per_img']} CPU-s/img, native_loader "
+          f"{r['native_loader']}), H2D {r['h2d_img_per_s']} img/s ({r['h2d_mb_per_s']} MB/s), "
+          f"device {r['device_only_img_per_s']} img/s; bound {r['bound']}; "
+          f"cores_per_chip_derived {r['cores_per_chip_derived']}; select launches "
+          f"{select.launches} in {calls} calls ({n_batches} batches served, sustained leg "
+          f"complete); NMS sweeps {nms_fixed.sweeps / calls:.2f} per call; {seconds:.1f} s; "
+          f"{json.dumps(r)}")
+    return {"benchmark_e2e": e2e_launches, "benchmark_streaming": calls}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
@@ -2634,6 +2780,7 @@ def main() -> int:
         phase_nccl(work)
         tools.update(phase_program(work, runs[0], full))
         tools.update(phase_spatial(work, full, dp))
+    tools.update(phase_benchmark(runs, full))
 
     # one batch of the flagship, one launch
     sel = runs[0]["select"]

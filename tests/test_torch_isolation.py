@@ -68,6 +68,7 @@ def test_port_imports_no_jax_flax_triton_or_jax_package():
         "yolo_ms_tpu_torch.tools.analyze",
         "yolo_ms_tpu_torch.tools.visualize",
         "yolo_ms_tpu_torch.tools.train",
+        "yolo_ms_tpu_torch.tools.benchmark",
         "yolo_ms_tpu_torch.data.loader",
         "yolo_ms_tpu_torch.train.loss",
         "yolo_ms_tpu_torch.utils.logging",

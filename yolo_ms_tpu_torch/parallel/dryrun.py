@@ -175,7 +175,7 @@ def dryrun_data_parallel(procs: int = 2, timeout_s: float = 600.0, device: str =
         assert all(r[k] == first[k] for k in TERMS), "the ranks report different metrics"
     assert first["loss_rel_err"] <= LOSS_RTOL, first
     assert first["state_close"], first
-    print(f"dry run OK: {procs} {first['backend']} ranks, global batch "
+    print(f"dry run OK (torch {torch.__version__}): {procs} {first['backend']} ranks, global batch "
           f"{ROWS_PER_RANK * procs}, loss {first['total_loss']:.4f}, num_fg "
           f"{first['num_fg']:.0f}; one-process step: loss rel err {first['loss_rel_err']:.2e}, "
           f"state max abs err {first['state_abs_err']:.2e}")
