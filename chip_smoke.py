@@ -18,14 +18,26 @@ that fails, and without a card. Phases, each printing one line:
    flushed); then the card-only tests of ``tests/test_torch_cuda.py`` in a
    child pytest;
 4. the two trained golden fixtures through ``Predictor(device="cuda")`` in
-   f32, matched against their checked-in detections, and the card's raw
-   maps on the same image held against the CPU's (atol 1e-4);
+   f32 (TF32 off) in both entry layouts, ``entry_layouts="auto"``
+   (channels-last, the default) and ``"default"`` (NCHW), matched against
+   their checked-in detections, and the card's raw maps on the same image
+   held against the CPU's (atol 1e-4);
 5. full-width serving: yolo-ms-xs and yolov8-n, nc=80, 640x640, bf16,
-   batch 32, weights from seeded numpy through the converter, BN-folded;
-   ``select.launches`` must rise by 1 per batch; outputs are checked, the
-   kernel tail is held against the plain tail on the same f32 maps, and the
-   batch time (host clock) and the copy, forward, post-process and kernel
-   times (CUDA events) are measured as medians. The kernel is timed as one
+   batch 32, weights from seeded numpy through the converter, BN-folded,
+   served through ``Predictor(entry_layouts="auto")`` (the main path) and
+   ``"default"`` in turns on the same 8 batches, twice: the first pass
+   holds every ``select`` launch against ``select_scales_plain`` on the same
+   maps, the second is timed; ``select.launches`` must rise by 1 per batch;
+   outputs are checked; auto's raw maps must lie within 2e-2 (max |diff| /
+   max |default|) of default's and be contiguous NHWC; the kernel tail is
+   held against the plain tail on the same f32 maps; per layout the batch
+   time (host clock), the forward and post-process times (CUDA events, in
+   turns), the kernels of one forward (``torch.profiler``: their count and
+   time, the layout transposes among them) and ``select``'s time, route and
+   share of its bound; under auto, the convs whose input or output is not
+   channels-last (forward hooks); each distinct conv timed alone in both
+   layouts (where channels-last loses and gains most). The main path's
+   kernel is timed as one
    launch per batch with L2 flushed (by a write, and by a read) and
    unflushed (as the main path finds the maps after the head convs), each
    behind a spin kernel so that the host's enqueue time is not counted, and
@@ -112,10 +124,12 @@ that fails, and without a card. Phases, each printing one line:
 9. the exported serving program and the pipelined ``predict_paths``:
    a. ``tools.export --program`` of both trained goldens (160², nc=3,
       batch 1), and ``tools.export.run`` + ``export_program`` of phase 5's
-      seeded yolo-ms-xs (nc=80, batch 32, 640², conf 1e-5): seconds and
-      file MB;
-   b. the flagship program (``load_program``) on phase 5's 8 batches
-      against ``Predictor.infer`` on the same batches: ``valid`` and
+      seeded yolo-ms-xs (nc=80, batch 32, 640², conf 1e-5), channels-last
+      (``entry_layouts="auto"``; the export reads the saved file back and
+      raises if it lost the layout): seconds and file MB;
+   b. the flagship program (``load_program``, its weights channels-last) on
+      phase 5's 8 batches against ``Predictor(entry_layouts="auto").infer``
+      on the same batches: ``valid`` and
       ``classes`` equal, boxes within 1e-3 px, scores within rtol 1e-5; one
       ``select`` launch per call; ms/batch on the host clock beside phase
       5's, the device time of a call, and the post-process alone exported
@@ -158,7 +172,8 @@ that fails, and without a card. Phases, each printing one line:
 
 11. the benchmark CLI's functions (``yolo_ms_tpu_torch/tools/benchmark.py``)
     at full width, bs=32, 640², nc=80, seed-0 weights, K=10, reps 3:
-    a. ``run_benchmark(arch, 32, "e2e")`` for yolo-ms-xs and yolov8-n:
+    a. ``run_benchmark(arch, 32, "e2e")`` for yolo-ms-xs and yolov8-n, its
+       report's layout ``auto`` / ``channels_last``:
        ``select.launches`` equal to the iterations run, warm-up included
        (1 per iteration); iteration 0 equal to ``Predictor.infer`` built
        here from the same draws on the same images, at the benchmark's conf
@@ -184,7 +199,8 @@ one on the same inputs, in turns (parent, this, this, parent), after
 phases 1 and 2.
 
 The kernel JSON counts ``select`` launches on every path
-(``launches_by_path``): the serving run of phase 5, the training run of
+(``launches_by_path``): the serving run of phase 5 (both layouts, both
+passes), the training run of
 phase 6c, phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
 runs, phase 8b's data-parallel validation (``train_dp_validate``, both
 ranks' launches), phase 9's program calls (``program``) and
@@ -205,6 +221,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import signal
 import socket
 import statistics
@@ -219,6 +236,7 @@ import torch
 from yolo_ms_tpu_torch.data import native_loader
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.data.decode import decode_and_resize
+from yolo_ms_tpu_torch.infer.layouts import ENTRY_LAYOUTS, memory_format_name, not_channels_last
 from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.infer.program import load_program
 from yolo_ms_tpu_torch.infer.video import predict_video
@@ -232,6 +250,7 @@ from yolo_ms_tpu_torch.ops.kernels.select import (
     select_scales,
     select_scales_plain,
 )
+from yolo_ms_tpu_torch.ops import postprocess as postprocess_mod
 from yolo_ms_tpu_torch.ops.nms import nms_fixed
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.parallel.distributed import (
@@ -274,7 +293,17 @@ GOLDENS = (
 )
 SERVE_ARCHS = ("yolo-ms-xs", "yolov8-n")
 BATCH, IMG, NC, REG_MAX = 32, 640, 80, 16
-SERVE_BATCHES = 8  # batches in the counted main-path run, per model
+SERVE_BATCHES = 8  # batches in the counted main-path run, per model and layout
+# Predictor(entry_layouts=...) over ENTRY_LAYOUTS: "auto" (the default,
+# channels-last on the card) is the main path; phases 4 and 5 also serve
+# "default" (NCHW)
+LAYOUT_FORMATS = {"auto": torch.channels_last, "default": torch.contiguous_format}
+# auto's bf16 raw head maps against default's, max |diff| / max |default|:
+# the same convs through other cuDNN kernels (NHWC against NCHW), each
+# layer's output rounded to bf16 (8 bits of mantissa, 3.9e-3 per rounding)
+LAYOUT_MAPS_REL = 2e-2
+# cuDNN's layout conversions and other transposes, by kernel name
+TRANSPOSE_KERNELS = re.compile(r"nchwToNhwc|nhwcToNchw|[Tt]ranspose")
 LAYOUTS = ("split", "unsplit", "nchw")
 # the serving scales at 640 px; a ragged set (HW 400 is not a multiple of the
 # tile; the rows of HW 49 and 25 are not 16-byte aligned)
@@ -385,9 +414,15 @@ def _layout_views(gen, b, h, w, nc, dtype, layout):
 
 def compare_select(pairs, dtype, label):
     """``select_scales`` against ``select_scales_plain`` on the same maps."""
-    mx, cid, ltrb = select_scales(pairs, REG_MAX)
+    got = select_scales(pairs, REG_MAX)
     routes = list(select_scales.last_routes)
-    pmx, pcid, pltrb = select_scales_plain(pairs, REG_MAX)
+    return check_select(got, select_scales_plain(pairs, REG_MAX), dtype, label), routes, got
+
+
+def check_select(got, want, dtype, label) -> float:
+    """The kernel's (mx, cid, ltrb) against the plain version's: ``mx`` and
+    ``cid`` equal, ``ltrb`` within LTRB_ATOL; returns the ltrb error."""
+    (mx, cid, ltrb), (pmx, pcid, pltrb) = got, want
     torch.cuda.synchronize()
     if not torch.equal(mx, pmx):
         raise AssertionError(f"{label}: mx differs, max err {(mx - pmx).abs().max().item()}")
@@ -396,7 +431,7 @@ def compare_select(pairs, dtype, label):
     err = (ltrb - pltrb).abs().max().item()
     if not (err <= LTRB_ATOL[dtype]) or not torch.isfinite(ltrb).all():
         raise AssertionError(f"{label}: ltrb max err {err} > {LTRB_ATOL[dtype]}")
-    return err, routes, (mx, cid, ltrb)
+    return err
 
 
 def _route_names(routes) -> str:
@@ -492,56 +527,69 @@ def match_golden(got: list, golden: list, iou_min: float = 0.9, score_tol: float
 
 
 def phase_goldens() -> None:
-    """Both trained goldens through the card's Predictor (f32, TF32 off),
-    matched against their checked-in detections; then the card's raw maps
-    on the same decoded image against the CPU's, within MAPS_ATOL."""
+    """Both trained goldens through the card's Predictor (f32, TF32 off) in
+    each entry layout, ``auto`` (channels-last, the default) and
+    ``default`` (NCHW), matched against their checked-in detections; then
+    the card's raw maps on the same decoded image against the CPU's (NCHW),
+    within MAPS_ATOL."""
     for arch, gdir in GOLDENS:
         state_dict = load_npz(os.path.join(gdir, "weights.npz"))
-        predictor = Predictor(
-            arch,
-            state_dict,
-            num_classes=3,
-            input_size=(160, 160),
-            conf_thresh=0.25,
-            iou_thresh=0.45,
-            dtype=torch.float32,
-            device="cuda",
-        )
         fixture = os.path.join(gdir, "fixture_000.png")
-        with tempfile.TemporaryDirectory() as out_dir:
-            results = predictor.predict_paths(fixture, out_dir, verbose=False)
-            if not os.path.exists(os.path.join(out_dir, "fixture_000_detected.jpg")):
-                raise AssertionError("drawn fixture missing")
         with open(os.path.join(gdir, "fixture_000_detections.json")) as f:
             golden = json.load(f)
-        got = next(iter(results.values()))
-        match_golden(got, golden)
-
         image = torch.from_numpy(decode_and_resize(fixture, 160, 160)[None])
         cpu_model = build_model(arch, num_classes=3, device="cpu", deploy=True)
         cpu_model.load_state_dict(fold_batchnorm(state_dict), strict=True)
         with torch.inference_mode():
             want = cpu_model(_nchw(image))
-            with full_f32():
-                card = predictor.model(_nchw(image.cuda()))
-            card_default = predictor.model(_nchw(image.cuda()))
+        for layout in ENTRY_LAYOUTS:
+            predictor = Predictor(
+                arch,
+                state_dict,
+                num_classes=3,
+                input_size=(160, 160),
+                conf_thresh=0.25,
+                iou_thresh=0.45,
+                dtype=torch.float32,
+                entry_layouts=layout,
+                device="cuda",
+            )
+            if predictor.serve.memory_format != LAYOUT_FORMATS[layout]:
+                raise AssertionError(f"4 {arch} {layout}: the network runs in "
+                                     f"{predictor.serve.memory_format}")
+            with tempfile.TemporaryDirectory() as out_dir:
+                results = predictor.predict_paths(fixture, out_dir, verbose=False)
+                if not os.path.exists(os.path.join(out_dir, "fixture_000_detected.jpg")):
+                    raise AssertionError("drawn fixture missing")
+            got = next(iter(results.values()))
+            match_golden(got, golden)
 
-        def max_err(maps):
-            return max((m.cpu() - w).abs().max().item() for m, w in zip(maps, want))
+            x = image.cuda()
+            with torch.inference_mode():
+                with full_f32():
+                    card = predictor.model(predictor.serve.network_input(x))
+                card_default = predictor.model(predictor.serve.network_input(x))
 
-        err = max_err(card)
-        if not err <= MAPS_ATOL:
-            raise AssertionError(f"{arch}: card raw maps differ from the CPU's by {err}")
-        decoder = "native loader" if native_loader.available() else "cv2"
-        print(f"phase 4 golden {arch}: {len(got)} detections match "
-              f"(scores {[d['score'] for d in got]}, decoded by {decoder}); "
-              f"raw maps card vs CPU max abs err {err:.3e} with TF32 off, "
-              f"{max_err(card_default):.3e} at the default conv precision "
-              f"({torch.backends.cudnn.conv.fp32_precision})")
+            def max_err(maps):
+                return max((m.cpu() - w).abs().max().item() for m, w in zip(maps, want))
+
+            err = max_err(card)
+            if not err <= MAPS_ATOL:
+                raise AssertionError(f"{arch} {layout}: card raw maps differ from the CPU's "
+                                     f"by {err}")
+            decoder = "native loader" if native_loader.available() else "cv2"
+            print(f"phase 4 golden {arch} entry_layouts={layout} "
+                  f"({memory_format_name(predictor.serve.memory_format)}): {len(got)} "
+                  f"detections match "
+                  f"(scores {[d['score'] for d in got]}, decoded by {decoder}); "
+                  f"raw maps card vs CPU max abs err {err:.3e} with TF32 off, "
+                  f"{max_err(card_default):.3e} at the default conv precision "
+                  f"({torch.backends.cudnn.conv.fp32_precision})")
 
 
 def _nchw(images_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """What ``Predictor.infer`` feeds the network: normalized, NCHW."""
+    """What ``Predictor(entry_layouts="default").infer`` feeds the network:
+    normalized, contiguous NCHW."""
     return device_normalize_images(images_u8, dtype).permute(0, 3, 1, 2).contiguous()
 
 
@@ -586,43 +634,200 @@ def serve_batches() -> list:
     ]
 
 
-def serve_model(arch: str, flush: torch.Tensor) -> dict:
-    state_dict = seeded_state_dict(arch, NC, seed=1)
-    predictor = Predictor(
-        arch,
-        state_dict,
-        num_classes=NC,
-        input_size=(IMG, IMG),
-        conf_thresh=1e-5,
-        batch_size=BATCH,
-        dtype=torch.bfloat16,
-        device="cuda",
-    )
-    batches = serve_batches()
-    predictor.predict_batch(batches[0])  # warm-up (cuDNN plans, kernel load)
+class SelectSpy:
+    """While ``on``: every ``select_scales`` call of the post-process (one
+    kernel launch) is held against ``select_scales_plain`` on the same maps
+    (``check_select``); its routes and error are kept under ``layout``. The
+    plain version launches no kernel, so the count is unchanged."""
 
-    # counted main-path run: every count at 0 just before, read just after
+    def __init__(self):
+        self.layout = None
+        self.calls = {}
+
+    @contextlib.contextmanager
+    def on(self):
+        real = postprocess_mod.select_scales
+
+        def spy(pairs, reg_max=REG_MAX):
+            before = select.launches
+            got = real(pairs, reg_max)
+            if select.launches != before + 1:
+                raise AssertionError(f"{self.layout}: a select call launched "
+                                     f"{select.launches - before} kernels")
+            routes = list(select_scales.last_routes)
+            err = check_select(got, select_scales_plain(pairs, reg_max), pairs[0][0].dtype,
+                               f"{self.layout} served maps")
+            self.calls.setdefault(self.layout, []).append((routes, err))
+            return got
+
+        postprocess_mod.select_scales = spy
+        try:
+            yield self
+        finally:
+            postprocess_mod.select_scales = real
+
+
+def conv_layout_audit(predictor: Predictor, x_u8: torch.Tensor) -> tuple[list, list]:
+    """One forward with a hook on every ``Conv2d``: the names of the convs
+    whose input, and whose output, is not channels-last memory."""
+    strided_in, strided_out = [], []
+
+    def check(name):
+        def hook(module, args, out):
+            if not args[0].is_contiguous(memory_format=torch.channels_last):
+                strided_in.append(name)
+            if not out.is_contiguous(memory_format=torch.channels_last):
+                strided_out.append(name)
+        return hook
+
+    hooks = [m.register_forward_hook(check(n)) for n, m in predictor.model.named_modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            predictor.model(predictor.serve.network_input(x_u8), split_head=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return strided_in, strided_out
+
+
+def conv_layout_costs(predictor: Predictor, x_u8: torch.Tensor, top: int = 4) -> dict:
+    """Each distinct conv of the model (input shape, weight shape, stride,
+    groups) timed alone in both layouts on a random input of its shape: the
+    weight and input contiguous NCHW, then both channels-last (CUDA events,
+    median of 5, the bias and activation left out). Returns both sums over
+    every conv of one forward and the ``top`` convs where channels-last
+    loses and gains most, by the first module name with that shape."""
+    seen = {}
+
+    def record(name):
+        def hook(module, args, out):
+            key = (tuple(args[0].shape), tuple(module.weight.shape), module.stride,
+                   module.padding, module.groups)
+            seen.setdefault(key, [name, module, 0])[2] += 1
+        return hook
+
+    hooks = [m.register_forward_hook(record(n)) for n, m in predictor.model.named_modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            predictor.model(predictor.serve.network_input(x_u8), split_head=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    rows, totals = [], {"nchw": 0.0, "channels_last": 0.0}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    with torch.inference_mode():
+        for (shape, _, stride, padding, groups), (name, module, calls) in seen.items():
+            w = module.weight
+            x = torch.randn(shape, generator=gen, device="cuda").to(w.dtype)
+            ms = {}
+            for fmt, key in ((torch.contiguous_format, "nchw"), (torch.channels_last,
+                                                                 "channels_last")):
+                xf, wf = x.contiguous(memory_format=fmt), w.contiguous(memory_format=fmt)
+                ms[key] = cuda_ms(lambda: torch.nn.functional.conv2d(
+                    xf, wf, None, stride, padding, 1, groups), 5)
+                totals[key] += ms[key] * calls
+            kind = (f"{'dw' if groups > 1 else 'dense'} k{w.shape[2]} s{stride[0]} "
+                    f"{shape[1]}->{w.shape[0]} @{shape[2]}x{shape[3]}")
+            rows.append((ms["channels_last"] - ms["nchw"], name, kind, calls, ms))
+    rows.sort(key=lambda r: -r[0])
+    return {"convs": sum(r[3] for r in rows), "distinct": len(rows), "totals": totals,
+            "losses": [r for r in rows[:top] if r[0] > 0],
+            "gains": [r for r in rows[::-1][:top] if r[0] < 0]}
+
+
+def forward_kernels(fn, top: int = 6) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (after one unprofiled
+    call): the device kernels, their time, the layout transposes among them
+    (``TRANSPOSE_KERNELS``) and the ``top`` kernels by time. Where the
+    profiler records no device time, the counts read 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    moves = [k for k in kernels if TRANSPOSE_KERNELS.search(k[0])]
+    kernels.sort(key=lambda k: -k[1])
+    return {"kernels": sum(k[2] for k in kernels), "busy_ms": sum(k[1] for k in kernels) / 1e3,
+            "transposes": sum(k[2] for k in moves), "transpose_ms": sum(k[1] for k in moves) / 1e3,
+            "transpose_names": sorted({k[0][:60] for k in moves}),
+            "top": [(k[0][:70], k[1] / 1e3, k[2]) for k in kernels[:top]]}
+
+
+def serve_model(arch: str, flush: torch.Tensor) -> dict:
+    """Phase 5 for one model: served by ``Predictor(entry_layouts="auto")``
+    (the main path) and ``"default"`` in turns on the same batches."""
+    state_dict = seeded_state_dict(arch, NC, seed=1)
+    predictors = {
+        layout: Predictor(arch, state_dict, num_classes=NC, input_size=(IMG, IMG),
+                          conf_thresh=1e-5, batch_size=BATCH, dtype=torch.bfloat16,
+                          entry_layouts=layout, device="cuda")
+        for layout in ENTRY_LAYOUTS
+    }
+    for layout, p in predictors.items():
+        if p.serve.memory_format != LAYOUT_FORMATS[layout]:
+            raise AssertionError(f"{arch} {layout}: the network runs in {p.serve.memory_format}")
+    batches = serve_batches()
+    for p in predictors.values():
+        p.predict_batch(batches[0])  # warm-up (cuDNN plans, kernel load)
+
+    # counted main-path run: every count at 0 just before, read just after.
+    # The first pass holds every select launch against the plain version on
+    # the same maps; the second is timed. Each batch is served by both
+    # layouts in turns (the order flips from batch to batch).
     select.launches = 0
     nms_fixed.sweeps = 0
-    host_ms = []
-    for imgs in batches:
-        t0 = time.perf_counter()
-        out = predictor.predict_batch(imgs)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        check_outputs(out, arch)
-    launches, sweeps = select.launches, nms_fixed.sweeps
-    if launches != SERVE_BATCHES:
-        raise AssertionError(f"{arch}: select launched {launches} times in "
-                             f"{SERVE_BATCHES} batches, expected {SERVE_BATCHES}")
+    spy = SelectSpy()
+    host_ms = {layout: [] for layout in ENTRY_LAYOUTS}
+    launches = dict.fromkeys(ENTRY_LAYOUTS, 0)
+    for checked in (True, False):
+        with spy.on() if checked else contextlib.nullcontext():
+            for i, imgs in enumerate(batches):
+                for layout in ENTRY_LAYOUTS[:: 1 if i % 2 == 0 else -1]:
+                    spy.layout, n = layout, select.launches
+                    t0 = time.perf_counter()
+                    out = predictors[layout].predict_batch(imgs)
+                    if not checked:
+                        host_ms[layout].append((time.perf_counter() - t0) * 1e3)
+                    if select.launches != n + 1:
+                        raise AssertionError(f"{arch} {layout}: {select.launches - n} select "
+                                             f"launches in one batch")
+                    launches[layout] += 1
+                    check_outputs(out, f"{arch} {layout}")
+    total, sweeps = select.launches, nms_fixed.sweeps
+    if total != 2 * len(ENTRY_LAYOUTS) * SERVE_BATCHES:
+        raise AssertionError(f"{arch}: select launched {total} times in "
+                             f"{2 * len(ENTRY_LAYOUTS) * SERVE_BATCHES} batches")
+    checked_routes = {layout: sorted({_route_names(r) for r, _ in calls})
+                      for layout, calls in spy.calls.items()}
+    checked_err = max(err for calls in spy.calls.values() for _, err in calls)
 
-    # the kernel tail against the plain tail, on the same f32 maps
     x_u8 = torch.from_numpy(batches[0]).cuda()
-    model = predictor.model
+    kw = dict(conf_thresh=1e-5, pre_nms_topk=1024, max_det=300)
     with torch.inference_mode():
-        raw = model(_nchw(x_u8, torch.bfloat16), split_head=True)
-        maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
-        maps32 = [(b.float(), c.float()) for b, c in maps]
-        kw = dict(conf_thresh=1e-5, pre_nms_topk=1024, max_det=300)
+        # auto's raw maps against default's, on the same batch
+        maps = {}
+        for layout, p in predictors.items():
+            raw = p.model(p.serve.network_input(x_u8), split_head=True)
+            maps[layout] = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
+        maps_rel = max(
+            (a.float() - d.float()).abs().max().item() / d.float().abs().max().item()
+            for pa, pd in zip(maps["auto"], maps["default"]) for a, d in zip(pa, pd))
+        if not maps_rel <= LAYOUT_MAPS_REL:
+            raise AssertionError(f"{arch}: auto's raw maps differ from default's by {maps_rel} "
+                                 f"of their largest value")
+        if not all(m.is_contiguous() for pair in maps["auto"] for m in pair):
+            raise AssertionError(f"{arch}: auto's head maps are not contiguous NHWC")
+
+        # the kernel tail against the plain tail, on the same f32 maps (auto's)
+        maps32 = [(b.float(), c.float()) for b, c in maps["auto"]]
         got = fused_postprocess(maps32, NC, **kw)
         want = fused_postprocess(maps32, NC, use_kernel=False, **kw)
         v = want["valid"]
@@ -634,44 +839,140 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
             raise AssertionError(f"{arch}: kernel tail boxes differ")
         tail_err = (got["boxes"][v] - want["boxes"][v]).abs().max().item()
 
-        # where the batch time goes (device time, CUDA events)
-        fwd_ms = cuda_ms(lambda: model(_nchw(x_u8, torch.bfloat16), split_head=True), 5)
-        post_ms = cuda_ms(lambda: fused_postprocess(maps, NC, **kw), 5)
-        infer_ms = cuda_ms(lambda: predictor.infer(x_u8), 5)
+        # where the batch time goes (device time, CUDA events), each layout
+        # in turns: auto, default, default, auto
+        parts = {layout: {"fwd_ms": [], "post_ms": [], "infer_ms": []} for layout in ENTRY_LAYOUTS}
+        for layout in ENTRY_LAYOUTS + ENTRY_LAYOUTS[::-1]:
+            p, part = predictors[layout], parts[layout]
+            part["fwd_ms"].append(cuda_ms(
+                lambda: p.model(p.serve.network_input(x_u8), split_head=True), 5))
+            part["post_ms"].append(cuda_ms(lambda: fused_postprocess(maps[layout], NC, **kw), 5))
+            part["infer_ms"].append(cuda_ms(lambda: p.infer(x_u8), 5))
+        profiles = {layout: forward_kernels(
+            lambda: p.model(p.serve.network_input(x_u8), split_head=True))
+            for layout, p in predictors.items()}
+        audit = conv_layout_audit(predictors["auto"], x_u8)
+        conv_costs = conv_layout_costs(predictors["default"], x_u8)
 
-        # the select kernel, one launch per batch and each scale alone,
-        # against its bound and the plain version
+        # the select kernel on each layout's maps, one launch per batch,
+        # against its bound; on the main path's (auto) also each scale alone,
+        # the plain version and the host's enqueue
         name = torch.cuda.get_device_name(0)
-        pairs = [(b.flatten(1, 2), c.flatten(1, 2)) for b, c in maps]
-        err, routes, _ = compare_select(pairs, torch.bfloat16, f"{arch} serving maps")
-        bytes_ms, ops_ms = select_bound(pairs, name)
-        one = lambda: select_scales(pairs, REG_MAX)  # noqa: E731
-        batch_sel = {
-            "ms": cuda_ms(one, 20, flush, cover=True),
-            "clean_ms": cuda_ms(one, 20, flush, clean=True, cover=True),
-            "warm_ms": cuda_ms(one, 20, cover=True),
-            "plain_ms": cuda_ms(lambda: select_scales_plain(pairs, REG_MAX), 20, flush, cover=True),
-            "host_us": host_us(one),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "err": err, "routes": routes,
-        }
-        scales = []
-        for box, cls in pairs:
-            bytes_ms, ops_ms = select_bound([(box, cls)], name)
-            scales.append({
-                "hw": box.shape[1],
-                "ms": cuda_ms(lambda: select(box, cls, REG_MAX), 20, flush, cover=True),
-                "plain_ms": cuda_ms(lambda: select_plain(box, cls, REG_MAX), 20, flush, cover=True),
-                "bytes_ms": bytes_ms,
-                "ops_ms": ops_ms,
-            })
+        sel = {}
+        for layout in ENTRY_LAYOUTS:
+            pairs = [(b.flatten(1, 2), c.flatten(1, 2)) for b, c in maps[layout]]
+            err, routes, _ = compare_select(pairs, torch.bfloat16, f"{arch} {layout} maps")
+            bytes_ms, ops_ms = select_bound(pairs, name)
+            one = lambda: select_scales(pairs, REG_MAX)  # noqa: E731
+            sel[layout] = {"ms": cuda_ms(one, 20, flush, cover=True), "bytes_ms": bytes_ms,
+                           "ops_ms": ops_ms, "err": err, "routes": routes}
+            if layout == "auto":
+                sel[layout].update({
+                    "clean_ms": cuda_ms(one, 20, flush, clean=True, cover=True),
+                    "warm_ms": cuda_ms(one, 20, cover=True),
+                    "plain_ms": cuda_ms(lambda: select_scales_plain(pairs, REG_MAX), 20, flush,
+                                        cover=True),
+                    "host_us": host_us(one),
+                })
+                scales = []
+                for box, cls in pairs:
+                    bytes_ms, ops_ms = select_bound([(box, cls)], name)
+                    scales.append({
+                        "hw": box.shape[1],
+                        "ms": cuda_ms(lambda: select(box, cls, REG_MAX), 20, flush, cover=True),
+                        "plain_ms": cuda_ms(lambda: select_plain(box, cls, REG_MAX), 20, flush,
+                                            cover=True),
+                        "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms,
+                    })
     h2d_ms = cuda_ms(lambda: torch.from_numpy(batches[0]).to("cuda"), 5)
-    med = statistics.median(host_ms)
-    return {
-        "arch": arch, "launches": launches, "sweeps": sweeps, "host_ms": med,
-        "img_s": BATCH / med * 1e3, "fwd_ms": fwd_ms, "post_ms": post_ms,
-        "infer_ms": infer_ms, "h2d_ms": h2d_ms, "select": batch_sel, "scales": scales,
-        "tail_err": tail_err, "predictor": predictor, "state_dict": state_dict,
+    layouts = {
+        layout: {"host_ms": statistics.median(host_ms[layout]),
+                 "fwd_ms": statistics.median(parts[layout]["fwd_ms"]),
+                 "post_ms": statistics.median(parts[layout]["post_ms"]),
+                 "infer_ms": statistics.median(parts[layout]["infer_ms"]),
+                 "parts": parts[layout], "launches": launches[layout],
+                 "checked_routes": checked_routes[layout], "kernels": profiles[layout],
+                 "select": sel[layout]}
+        for layout in ENTRY_LAYOUTS
     }
+    auto = layouts["auto"]
+    return {
+        "arch": arch, "launches": total, "sweeps": sweeps, "host_ms": auto["host_ms"],
+        "img_s": BATCH / auto["host_ms"] * 1e3, "fwd_ms": auto["fwd_ms"],
+        "post_ms": auto["post_ms"], "infer_ms": auto["infer_ms"], "h2d_ms": h2d_ms,
+        "select": sel["auto"], "scales": scales, "tail_err": tail_err, "maps_rel": maps_rel,
+        "checked_err": checked_err, "audit": audit, "layouts": layouts,
+        "conv_costs": conv_costs,
+        "predictor": predictors["auto"], "state_dict": state_dict,
+    }
+
+
+def _ms_pair(values) -> str:
+    return " / ".join(f"{v:.3f}" for v in values)
+
+
+def print_serving(r: dict) -> None:
+    """Phase 5's lines for one model: each layout's batch, the layouts
+    against each other, the conv audit, and the select kernel."""
+    for layout, lr in r["layouts"].items():
+        sel, k = lr["select"], lr["kernels"]
+        bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
+        busy = f"{k['busy_ms']:.3f} ms" if k["busy_ms"] else "not measured"
+        print(
+            f"phase 5 serve {r['arch']} bs={BATCH} {IMG}px bf16 entry_layouts={layout} "
+            f"({memory_format_name(LAYOUT_FORMATS[layout])}): {lr['host_ms']:.3f} ms/batch "
+            f"predict_batch "
+            f"(host clock, median of {SERVE_BATCHES}), {BATCH / lr['host_ms'] * 1e3:.1f} img/s; "
+            f"device (CUDA events, median of 2, in turns): infer {lr['infer_ms']:.3f} ms "
+            f"({_ms_pair(lr['parts']['infer_ms'])}) = normalize+forward {lr['fwd_ms']:.3f} ms "
+            f"({_ms_pair(lr['parts']['fwd_ms'])}) + post-process {lr['post_ms']:.3f} ms "
+            f"({_ms_pair(lr['parts']['post_ms'])}); select launches {lr['launches']} in "
+            f"{2 * SERVE_BATCHES} batches, each equal to the plain version, routes "
+            f"{', '.join(lr['checked_routes'])}; select {sel['ms'] * 1e3:.1f} us on these maps "
+            f"(L2 flushed by a write; bound {bound_ms * 1e3:.1f} us by {bound_by}, "
+            f"{bound_ms / sel['ms'] * 100:.0f} % of it); one forward profiled: {k['kernels']} "
+            f"kernels, {busy} of kernel time, {k['transposes']} layout transposes "
+            f"({k['transpose_ms']:.3f} ms: {', '.join(k['transpose_names']) or 'none'}); top "
+            f"kernels: " + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in k["top"]))
+    strided_in, strided_out = r["audit"]
+    print(f"phase 5 layouts {r['arch']}: auto's raw maps vs default's max |diff| / max |default| "
+          f"{r['maps_rel']:.3e} (bound {LAYOUT_MAPS_REL}); auto's maps contiguous NHWC; convs "
+          f"under auto whose output is not channels-last: {strided_out or 'none'}; whose input "
+          f"is not: {strided_in or 'none'}; uint8 H2D {r['h2d_ms']:.3f} ms; NMS sweeps "
+          f"{r['sweeps']} ({r['sweeps'] / (4 * SERVE_BATCHES):.1f}/batch); select launches "
+          f"{r['launches']}, worst ltrb err against plain {r['checked_err']:.3e}; kernel-vs-plain "
+          f"tail box err {r['tail_err']:.3e}")
+    c = r["conv_costs"]
+
+    def conv_row(row):
+        diff, name, kind, calls, ms = row
+        return (f"{name} ({kind}, x{calls}): NCHW {ms['nchw']:.3f} ms, channels-last "
+                f"{ms['channels_last']:.3f} ms")
+
+    print(f"phase 5 convs {r['arch']}: the {c['convs']} convs of one forward ({c['distinct']} "
+          f"distinct) timed alone, each layout in turn (CUDA events, median of 5, no bias or "
+          f"activation): sum NCHW {c['totals']['nchw']:.3f} ms, channels-last "
+          f"{c['totals']['channels_last']:.3f} ms; channels-last loses most at: "
+          + ("; ".join(conv_row(x) for x in c["losses"]) or "none") + "; gains most at: "
+          + ("; ".join(conv_row(x) for x in c["gains"]) or "none"))
+    sel = r["select"]
+    bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
+    per_scale = ", ".join(
+        "HW {}: {:.1f} us (bound {:.1f} us by {}, plain {:.1f} us)".format(
+            s["hw"], s["ms"] * 1e3, bound_of(s["bytes_ms"], s["ops_ms"])[0] * 1e3,
+            bound_of(s["bytes_ms"], s["ops_ms"])[1], s["plain_ms"] * 1e3)
+        for s in r["scales"]
+    )
+    print(
+        f"phase 5 select {r['arch']} main path (auto maps): one launch per batch "
+        f"{sel['ms'] * 1e3:.1f} us with L2 flushed by a write, {sel['clean_ms'] * 1e3:.1f} us "
+        f"flushed by a read, {sel['warm_ms'] * 1e3:.1f} us unflushed (bound "
+        f"{bound_ms * 1e3:.1f} us by {bound_by}, {bound_ms / sel['ms'] * 100:.0f} / "
+        f"{bound_ms / sel['clean_ms'] * 100:.0f} / {bound_ms / sel['warm_ms'] * 100:.0f} % of "
+        f"it; plain {sel['plain_ms'] * 1e3:.1f} us; host {sel['host_us']:.1f} us to enqueue one "
+        f"call; routes {_route_names(sel['routes'])}); each scale alone: {per_scale}"
+    )
 
 
 def check_outputs(out: dict, arch: str) -> None:
@@ -2013,10 +2314,12 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
     with _quiet(log):
         folded = os.path.join(root, "flagship.ckpt")
         tools_export.run(sd_path, folded)
-        tools_export.export_program(
+        info = tools_export.export_program(
             load_serving_state_dict(folded), "yolo-ms-xs", NC, prog, batch=BATCH,
             img_size=(IMG, IMG), conf_thresh=1e-5)
     export_s = time.perf_counter() - t0
+    if info["memory_format"] != "channels_last":
+        raise AssertionError(f"9a: the program was exported in {info['memory_format']}")
     golden_progs = []
     for arch, gdir in GOLDENS:
         path = os.path.join(root, f"golden_{arch}.pt2")
@@ -2025,13 +2328,17 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
                     "--arch", arch, "--num_classes", "3", "--img_size", "160", "160")
         golden_progs.append((arch, path, os.path.join(gdir, "fixture_000.png")))
     print(f"phase 9a tools.export --program: yolo-ms-xs nc={NC} bs={BATCH} {IMG}px bf16 conf "
-          f"1e-5 in {export_s:.2f} s (checkpoint fold and save included), "
+          f"1e-5, entry_layouts=auto ({info['memory_format']}, the saved file read back with "
+          f"its channels-last weights under torch {torch.__version__}), in {export_s:.2f} s "
+          f"(checkpoint fold and save included), "
           f"{os.path.getsize(prog) / 1e6:.1f} MB; goldens "
           + ", ".join(f"{a} {os.path.getsize(p) / 1e6:.1f} MB" for a, p, _ in golden_progs))
 
     # 9b: the counted run of the program, every count at 0 just before
     predictor = flagship["predictor"]
     program = load_program(prog)
+    if not_channels_last(program) or predictor.serve.memory_format != torch.channels_last:
+        raise AssertionError("9b: the loaded program or the predictor is not channels-last")
     batches = serve_batches()
     x0 = torch.from_numpy(batches[0]).cuda()
 
@@ -2057,7 +2364,7 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
         errs = _same_detections(got, predictor.predict_batch(imgs), f"9b batch {k}")
         box_err, score_err = max(box_err, errs[0]), max(score_err, errs[1])
     with torch.no_grad():
-        raw = predictor.model(_nchw(x0, torch.bfloat16), split_head=True)
+        raw = predictor.model(predictor.serve.network_input(x0), split_head=True)
         maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
         t0 = time.perf_counter()
         tail = torch.export.export(_Tail(), (maps,), strict=False).module()
@@ -2217,7 +2524,8 @@ def _sp_select_check(predictor: Predictor, x: torch.Tensor, label: str, mesh=Non
     height. These launches are not 10c's count."""
     rows = mesh.shards.rows(x.shape[1]) if mesh else contextlib.nullcontext()
     with torch.inference_mode(), full_f32(), rows:
-        raw = predictor.model(_nchw(mesh.shards.own_rows(x, 1) if mesh else x), split_head=True)
+        own = mesh.shards.own_rows(x, 1) if mesh else x
+        raw = predictor.model(predictor.serve.network_input(own), split_head=True)
     pairs = [(b.permute(0, 2, 3, 1).flatten(1, 2), c.permute(0, 2, 3, 1).flatten(1, 2))
              for b, c in raw]
     err, routes, _ = compare_select(pairs, torch.float32, label)
@@ -2638,6 +2946,8 @@ def phase_benchmark(runs: list, full: dict) -> dict:
             raise AssertionError(f"11a {arch}: select launched {launches} times in {iters} "
                                  f"e2e iterations")
         e2e_launches += launches
+        if (r["entry_layouts"], r["memory_format"]) != ("auto", "channels_last"):
+            raise AssertionError(f"11a {arch}: served {r['entry_layouts']} in {r['memory_format']}")
         print(f"phase 11a benchmark e2e {arch} bs={BATCH} {IMG}px bf16 K={BENCH_K} "
               f"reps={BENCH_REPS}: {_bench_line(r)}; phase 5 infer {by_arch[arch]['infer_ms']:.3f} "
               f"ms (CUDA events); select launches {launches} in {iters} iterations; NMS sweeps "
@@ -2680,6 +2990,8 @@ def phase_benchmark(runs: list, full: dict) -> dict:
     seconds = time.perf_counter() - t0
     n_batches = r["n_images"] // BATCH
     calls = 2 + 2 * n_batches
+    if (r["entry_layouts"], r["memory_format"]) != ("auto", "channels_last"):
+        raise AssertionError(f"11d: served {r['entry_layouts']} in {r['memory_format']}")
     if select.launches != calls:
         raise AssertionError(f"11d: select launched {select.launches} times in {calls} calls")
     print(f"phase 11d benchmark streaming yolo-ms-xs bs={BATCH} {IMG}px bf16, {r['n_images']} "
@@ -2736,32 +3048,7 @@ def main() -> int:
 
     runs = [serve_model(arch, flush) for arch in SERVE_ARCHS]
     for r in runs:
-        sel = r["select"]
-        bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
-        per_scale = ", ".join(
-            "HW {}: {:.1f} us (bound {:.1f} us by {}, plain {:.1f} us)".format(
-                s["hw"], s["ms"] * 1e3, bound_of(s["bytes_ms"], s["ops_ms"])[0] * 1e3,
-                bound_of(s["bytes_ms"], s["ops_ms"])[1], s["plain_ms"] * 1e3)
-            for s in r["scales"]
-        )
-        print(
-            f"phase 5 serve {r['arch']} bs={BATCH} {IMG}px bf16: {r['host_ms']:.3f} ms/batch "
-            f"predict_batch (host clock, median of {SERVE_BATCHES}), {r['img_s']:.1f} img/s; "
-            f"device: uint8 H2D {r['h2d_ms']:.3f} ms, infer {r['infer_ms']:.3f} ms = "
-            f"normalize+forward {r['fwd_ms']:.3f} ms + post-process {r['post_ms']:.3f} ms; "
-            f"select launches {r['launches']} in {SERVE_BATCHES} batches; "
-            f"NMS sweeps {r['sweeps']} ({r['sweeps'] / SERVE_BATCHES:.1f}/batch); "
-            f"kernel-vs-plain tail box err {r['tail_err']:.3e}"
-        )
-        print(
-            f"phase 5 select {r['arch']}: one launch per batch {sel['ms'] * 1e3:.1f} us with L2 "
-            f"flushed by a write, {sel['clean_ms'] * 1e3:.1f} us flushed by a read, "
-            f"{sel['warm_ms'] * 1e3:.1f} us unflushed (bound {bound_ms * 1e3:.1f} us by "
-            f"{bound_by}, {bound_ms / sel['ms'] * 100:.0f} / {bound_ms / sel['clean_ms'] * 100:.0f}"
-            f" / {bound_ms / sel['warm_ms'] * 100:.0f} % of it; plain "
-            f"{sel['plain_ms'] * 1e3:.1f} us; host {sel['host_us']:.1f} us to enqueue one call; "
-            f"routes {_route_names(sel['routes'])}); each scale alone: {per_scale}"
-        )
+        print_serving(r)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         phase_step_parity()

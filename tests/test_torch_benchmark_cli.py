@@ -1,7 +1,9 @@
 """The port's benchmark CLI (``yolo_ms_tpu_torch/tools/benchmark.py``) on the
 CPU, held against the JAX module (``yolo_ms_tpu/tools/benchmark.py``): the
 copied fixture writer and overlap harness, the per-iteration inputs and the
-train batch, the report keys, the streaming run and the CLI's options. No
+train batch, the report keys (the ``e2e`` and streaming reports add the
+serving layout, ``entry_layouts`` and ``memory_format``), the streaming run
+and the CLI's options. No
 JAX model is compiled here (``tests/test_benchmark_cli.py`` compiles the
 JAX side); rates measured here are CPU rates, checked only for sign.
 """
@@ -21,13 +23,16 @@ import torch
 
 from tests.test_benchmark_cli import REPORT_KEYS
 from yolo_ms_tpu.tools import benchmark as jax_bench
+from yolo_ms_tpu_torch.infer import layouts
 from yolo_ms_tpu_torch.tools import benchmark as bench
+
+LAYOUT_KEYS = {"entry_layouts", "memory_format"}  # the serving modes' report adds these
 
 STREAMING_KEYS = {
     "arch", "mode", "batch", "img_size", "n_images", "threads", "native_loader",
-    "entry_layouts", "device", "sustained_img_per_s", "host_decode_img_per_s",
-    "host_decode_cpu_s_per_img", "cores_per_chip_derived", "h2d_img_per_s",
-    "h2d_mb_per_s", "device_only_img_per_s", "bound",
+    "entry_layouts", "memory_format", "device", "sustained_img_per_s",
+    "host_decode_img_per_s", "host_decode_cpu_s_per_img", "cores_per_chip_derived",
+    "h2d_img_per_s", "h2d_mb_per_s", "device_only_img_per_s", "bound",
 }
 
 
@@ -146,7 +151,7 @@ def test_train_batch_equals_jax():
 def test_run_benchmark_report(mode, batch):
     r = bench.run_benchmark("n", batch, mode, img_size=64, num_classes=4, k=1, reps=1,
                             device="cpu")
-    assert set(r) == REPORT_KEYS
+    assert set(r) == REPORT_KEYS | (LAYOUT_KEYS if mode == "e2e" else set())
     assert r["arch"] == "n" and r["mode"] == mode and r["batch"] == batch
     assert r["device"] == "cpu"
     assert r["k_wall_ms_per_batch"] > 0 and r["k_wall_img_per_s"] > 0
@@ -200,6 +205,7 @@ def test_run_streaming_report(tmp_path):
     assert r["mode"] == "streaming"
     assert r["n_images"] == 8
     assert r["entry_layouts"] == "auto"
+    assert r["memory_format"] == "contiguous_format"  # auto is off on the CPU
     assert r["sustained_img_per_s"] > 0
     assert r["host_decode_img_per_s"] > 0
     assert r["h2d_img_per_s"] > 0
@@ -242,9 +248,49 @@ def test_cli_options_and_defaults_equal_jax(capsys, monkeypatch):
         capsys.readouterr()
         want = _calls(jax_bench, monkeypatch, argv)
         capsys.readouterr()
-        assert [(n, a, {k: v for k, v in kw.items() if k != "device"})
+        # the JAX CLI passes entry_layouts to its streaming run only
+        port_only = {"device"} | ({"entry_layouts"} if got[0][0] == "run_benchmark" else set())
+        assert [(n, a, {k: v for k, v in kw.items() if k not in port_only})
                 for n, a, kw in got] == want
         assert got[0][2]["device"] is None
+        assert got[0][2]["entry_layouts"] == "auto"
+
+
+@pytest.mark.parametrize("entry_layouts,forced,want", [
+    ("default", True, "contiguous_format"),
+    ("auto", False, "contiguous_format"),
+    ("auto", True, "channels_last"),
+])
+def test_entry_layouts_selects_the_serving_layout(monkeypatch, capsys, entry_layouts, forced,
+                                                  want):
+    """``--entry_layouts`` reaches the e2e and streaming predictors and the
+    report echoes the memory format that the network ran in: channels-last
+    only under ``auto`` where the wrapper is on (the card; the CPU here
+    when forced), contiguous NCHW otherwise."""
+    if forced:
+        monkeypatch.setattr(layouts, "ENABLED_ON", ("cuda", "cpu"))
+    loop = bench.make_loop("n", 1, "e2e", img_size=64, num_classes=4, device="cpu",
+                           entry_layouts=entry_layouts)
+    assert layouts.memory_format_name(loop.predictor.serve.memory_format) == want
+    out = loop.run(0)
+    assert out["valid"].shape == (1, 300)
+    calls = _calls(bench, monkeypatch, ["--entry_layouts", entry_layouts])
+    assert calls[0][2]["entry_layouts"] == entry_layouts
+    calls = _calls(bench, monkeypatch, ["--mode", "streaming", "--entry_layouts", entry_layouts])
+    assert calls[0][2]["entry_layouts"] == entry_layouts
+    capsys.readouterr()
+
+
+def test_entry_layouts_errors():
+    with pytest.raises(ValueError, match="entry_layouts"):
+        bench.make_loop("n", 1, "e2e", img_size=64, num_classes=4, device="cpu",
+                        entry_layouts="bogus")
+    with pytest.raises(ValueError, match="serves nothing"):
+        bench.make_loop("n", 1, "forward", img_size=64, num_classes=4, device="cpu",
+                        entry_layouts="default")
+    with pytest.raises(ValueError, match="entry_layouts"):
+        bench.run_streaming("n", 2, img_size=64, num_classes=4, entry_layouts="bogus",
+                            device="cpu")
 
 
 def test_cli_prints_one_json_line(capsys):

@@ -1,7 +1,9 @@
 """CUDA-only tests of the port: the hand-written select kernel against its
 plain version (through its wrapper and through its ``torch.library`` op),
-the kernel tail of ``fused_postprocess`` against the plain tail, and an
-exported serving program against ``Predictor.infer``, on the card. They skip without a card. This file imports no JAX, so on
+the kernel tail of ``fused_postprocess`` against the plain tail, an
+exported serving program against ``Predictor.infer``, and channels-last
+serving (``entry_layouts="auto"``) against the default layout, on the card.
+They skip without a card. This file imports no JAX, so on
 a machine without JAX it runs with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -164,6 +166,7 @@ def test_exported_program_on_card_matches_infer(card, tmp_path):
 
     import numpy as np
 
+    from yolo_ms_tpu_torch.infer.layouts import not_channels_last
     from yolo_ms_tpu_torch.infer.predictor import Predictor
     from yolo_ms_tpu_torch.infer.program import load_program
     from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
@@ -173,8 +176,10 @@ def test_exported_program_on_card_matches_infer(card, tmp_path):
     sd = fold_batchnorm(load_npz(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "golden", "trained", "weights.npz")))
     path = str(tmp_path / "serve.pt2")
-    export_program(sd, "n", 3, path, batch=2, img_size=(160, 160), device="cuda")
+    info = export_program(sd, "n", 3, path, batch=2, img_size=(160, 160), device="cuda")
+    assert info["memory_format"] == "channels_last"
     program = load_program(path, device="cuda")
+    assert not_channels_last(program) == []
     images = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, (2, 160, 160, 3), dtype=np.uint8)).cuda()
     predictor = Predictor("n", sd, num_classes=3, input_size=(160, 160),
@@ -189,6 +194,61 @@ def test_exported_program_on_card_matches_infer(card, tmp_path):
     assert torch.equal(got["classes"], want["classes"])
     for key in ("boxes", "scores"):
         torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["n", "yolo-ms-xs"])
+def test_channels_last_serving_on_card(card, arch):
+    """Each golden in f32 (TF32 off) through ``Predictor(entry_layouts=
+    "auto")`` and ``"default"`` on the same images: the same detections;
+    under auto every conv's output is channels-last on the card (inputs
+    too, but the C2f channel slices), and ``select`` takes no TMA route (its
+    maps are contiguous NHWC rows)."""
+    import os
+
+    import numpy as np
+    from torch import nn
+
+    from yolo_ms_tpu_torch.infer.predictor import Predictor
+    from yolo_ms_tpu_torch.utils.convert import load_npz
+
+    sub = "trained" if arch == "n" else "trained_yolo-ms-xs"
+    sd = load_npz(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", sub,
+                               "weights.npz"))
+    kw = dict(num_classes=3, input_size=(160, 160), conf_thresh=0.25, device="cuda")
+    auto = Predictor(arch, sd, entry_layouts="auto", **kw)
+    default = Predictor(arch, sd, entry_layouts="default", **kw)
+    assert auto.serve.memory_format == torch.channels_last
+    assert default.serve.memory_format == torch.contiguous_format
+    images = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (2, 160, 160, 3), dtype=np.uint8)).cuda()
+    strided_in, strided_out = [], []
+
+    def check(name):
+        def hook(module, args, out):
+            if not args[0].is_contiguous(memory_format=torch.channels_last):
+                strided_in.append(name)
+            if not out.is_contiguous(memory_format=torch.channels_last):
+                strided_out.append(name)
+        return hook
+
+    hooks = [m.register_forward_hook(check(n)) for n, m in auto.model.named_modules()
+             if isinstance(m, nn.Conv2d)]
+    try:
+        got = auto.infer(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    routes = [r for pair in select_scales.last_routes for r in pair]
+    want = default.infer(images)
+    torch.cuda.synchronize()
+    assert strided_out == []
+    assert all(".m_0.conv1." in n for n in strided_in), strided_in
+    assert "tma" not in routes, routes
+    assert torch.equal(got["valid"], want["valid"])
+    assert torch.equal(got["classes"], want["classes"])
+    torch.testing.assert_close(got["boxes"], want["boxes"], rtol=0.0, atol=1e-3)
+    torch.testing.assert_close(got["scores"], want["scores"], rtol=1e-4, atol=1e-6)
 
 
 def _train_one_step(device, optimizer):

@@ -7,8 +7,11 @@ detection tensors come back to the host. Host work is the JAX package's:
 plain resize (or letterbox), box rescale to the original image, drawing and
 per-image JSON with the reference record schema.
 
-``Predictor`` takes NHWC uint8 batches, as the JAX one does; the network
-runs NCHW inside. It runs on the card unless ``device="cpu"`` is passed.
+``Predictor`` takes NHWC uint8 batches, as the JAX one does. With
+``entry_layouts="auto"`` (the default, as in JAX) the network runs
+channels-last on the card (``infer/layouts.py``), so the batch enters it
+without a relayout; with ``"default"``, and on the CPU, it runs contiguous
+NCHW. It runs on the card unless ``device="cpu"`` is passed.
 ``predict_paths`` overlaps the host's decode and write with the device's
 batch, as the JAX package's does.
 """
@@ -26,6 +29,7 @@ import torch
 
 from yolo_ms_tpu_torch.data.augment import letterbox
 from yolo_ms_tpu_torch.data.decode import decode_and_resize, decode_image
+from yolo_ms_tpu_torch.infer.layouts import AutoLayoutInfer, check_entry_layouts
 from yolo_ms_tpu_torch.infer.program import ServingProgram
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables
 from yolo_ms_tpu_torch.models.registry import build_model
@@ -38,8 +42,15 @@ class Predictor:
     """Serve a zoo model from a port state_dict (``utils/convert.py`` turns
     flax variables or a golden ``weights.npz`` into one).
 
-    The model always serves in BN-folded deploy structure: a
-    train-structure state_dict is folded, a folded one is used as it is.
+    ``deploy`` (the JAX semantics): a folded state_dict is served as it
+    is; a train-structure one is folded (``deploy=True``) or served
+    unfolded, BatchNorm in eval mode (``deploy=False``). ``self.deploy``
+    says which structure serves.
+
+    ``entry_layouts``: ``"auto"`` serves through ``AutoLayoutInfer``
+    (channels-last on the card, the default layout elsewhere);
+    ``"default"`` serves the contiguous NCHW layout everywhere.
+
     f32 serving pins full-f32 convs and matmuls (no TF32); bf16 serving
     runs in bf16.
     """
@@ -59,10 +70,15 @@ class Predictor:
         letterbox: bool = False,
         dtype: torch.dtype = torch.float32,
         pre_nms_topk: int = 1024,
+        deploy: bool = True,
+        entry_layouts: str = "auto",
         device=None,
     ):
+        check_entry_layouts(entry_layouts)
         self.device = resolve_device(device)
-        if not is_deploy_variables(state_dict):
+        folded = is_deploy_variables(state_dict)
+        self.deploy = folded or deploy
+        if self.deploy and not folded:
             state_dict = fold_batchnorm(state_dict)
         self.model = build_model(
             architecture,
@@ -70,7 +86,7 @@ class Predictor:
             reg_max=reg_max,
             dtype=dtype,
             device=self.device,
-            deploy=True,
+            deploy=self.deploy,
         )
         self.model.load_state_dict(state_dict, strict=True)
         self.dtype = dtype
@@ -83,6 +99,7 @@ class Predictor:
         self.batch_size = batch_size
         self.reg_max = reg_max
         self.letterbox = letterbox
+        self.entry_layouts = entry_layouts
         self.pre_nms_topk = pre_nms_topk
         self.serve = ServingProgram(
             self.model,
@@ -94,15 +111,16 @@ class Predictor:
             pre_nms_topk=pre_nms_topk,
             dtype=dtype,
         )
+        self._infer = AutoLayoutInfer(self.serve) if entry_layouts == "auto" else self.serve
 
     def infer(self, images_u8: torch.Tensor) -> dict:
         """[B, H, W, 3] uint8 on the predictor's device -> post-process dict
         of device tensors (``ServingProgram``, the function that
-        ``tools.export --program`` exports). Normalization runs on the
-        device, so only uint8 pixels cross from the host."""
+        ``tools.export --program`` exports, in the entry layout). Normalization
+        runs on the device, so only uint8 pixels cross from the host."""
         precision = full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
         with torch.inference_mode(), precision:
-            return self.serve(images_u8)
+            return self._infer(images_u8)
 
     def predict_batch(self, images_u8: np.ndarray) -> dict:
         """images_u8: [B, H, W, 3] uint8 at input_size. Returns host numpy."""

@@ -2,8 +2,8 @@
 
 ``ServingProgram`` is the ``serve`` function of
 ``yolo_ms_tpu/tools/export.py:export_stablehlo``: uint8 NHWC pixels ->
-normalize -> BN-folded forward (split head) -> ``fused_postprocess`` ->
-the detection dict. ``Predictor.infer`` runs it eagerly;
+normalize -> forward (split head) -> ``fused_postprocess`` -> the detection
+dict. ``Predictor.infer`` runs it eagerly;
 ``tools/export.py:export_program`` traces it with ``torch.export`` into a
 file that holds the weights, the graph and the calls of the ``select`` op.
 
@@ -23,14 +23,21 @@ from yolo_ms_tpu_torch.utils.device import resolve_device
 
 
 class ServingProgram(nn.Module):
-    """A BN-folded (``deploy=True``) model and the post-process settings.
+    """A model in eval mode (BN-folded, or not under ``Predictor(deploy=
+    False)``) and the post-process settings.
 
     ``forward(images_u8)``: [B, H, W, 3] uint8 on the model's device ->
     {'boxes' [B, max_det, 4] xyxy f32 px, 'scores' [B, max_det] f32,
     'classes' [B, max_det] i32, 'valid' [B, max_det] bool}. The network runs
-    NCHW in ``dtype``; the post-process reads NHWC views of its maps in
-    place. No grad or precision context is set here: the caller chooses.
+    in ``dtype`` on NCHW-shaped tensors whose memory is ``memory_format``:
+    contiguous NCHW by default, ``torch.channels_last`` once
+    ``infer/layouts.py:AutoLayoutInfer`` has converted the weights. The
+    post-process reads NHWC views of the head's maps in place: strided in
+    the default layout, contiguous in channels-last. No grad or precision
+    context is set here: the caller chooses.
     """
+
+    memory_format = torch.contiguous_format
 
     def __init__(
         self,
@@ -53,11 +60,16 @@ class ServingProgram(nn.Module):
         self.pre_nms_topk = pre_nms_topk
         self.dtype = dtype
 
+    def network_input(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] uint8 -> what the network takes: normalized, NCHW
+        shape, in ``memory_format`` (a view, with no copy, in
+        channels-last)."""
+        x = device_normalize_images(images_u8, self.dtype).permute(0, 3, 1, 2)
+        return x.contiguous(memory_format=self.memory_format)
+
     def forward(self, images_u8: torch.Tensor) -> dict:
-        x = device_normalize_images(images_u8, self.dtype)
-        x = x.permute(0, 3, 1, 2).contiguous()  # NCHW inside the network
-        raw = self.model(x, split_head=True)
-        # NHWC views of the NCHW maps: the select kernel reads them in place
+        raw = self.model(self.network_input(images_u8), split_head=True)
+        # NHWC views of the maps: the select kernel reads them in place
         maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
         return fused_postprocess(
             maps,

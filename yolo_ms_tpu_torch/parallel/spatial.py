@@ -31,7 +31,10 @@ between the ranks of one spatial group (``parallel/mesh.py``):
 
 Under gloo, each message is staged through the host in its own dtype
 (bf16 included; ``parallel/distributed.py:exchange``). Nothing falls back:
-a failed message raises.
+a failed message raises. Messages travel as contiguous NCHW; the gathered
+rows keep the memory format of the map they extend, so a channels-last
+network (``infer/layouts.py``) stays channels-last and its head's maps
+reach ``select`` as contiguous NHWC rows.
 
 The model's modules reach this through ``nn/blocks.py:set_spatial_group``,
 which gives each site (conv, pool, upsample, mean, head) a ``Rows`` handle
@@ -159,15 +162,21 @@ class _GatherRows(torch.autograd.Function):
             {r: x.new_empty(b, c, e - a, w) for r, (a, e) in recv.items()})
         if hi <= lo:
             return x.new_empty(b, c, 0, w)
+        # a channel stride of 1 is channels-last memory: the rows from other
+        # ranks and the fill take it too, so that the concatenation keeps it
+        fmt = torch.channels_last if x.stride(1) == 1 and c > 1 else torch.contiguous_format
         pieces = []
         if lo < 0:
-            pieces.append(x.new_full((b, c, min(hi, 0) - lo, w), fill))
+            pieces.append(x.new_full((b, c, min(hi, 0) - lo, w), fill).contiguous(
+                memory_format=fmt))
         for r, span in enumerate(row_partition(h, shards.size)):
             a, e = _overlap((lo, hi), span)
             if a < e:
-                pieces.append(x[:, :, a - own[0] : e - own[0]] if r == shards.index else got[r])
+                pieces.append(x[:, :, a - own[0] : e - own[0]] if r == shards.index
+                              else got[r].contiguous(memory_format=fmt))
         if hi > h:
-            pieces.append(x.new_full((b, c, hi - max(lo, h), w), fill))
+            pieces.append(x.new_full((b, c, hi - max(lo, h), w), fill).contiguous(
+                memory_format=fmt))
         return torch.cat(pieces, dim=2)
 
     @staticmethod

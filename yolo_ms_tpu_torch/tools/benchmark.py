@@ -23,6 +23,12 @@ Where an iteration syncs on its own (the ``e2e`` mode's NMS reads its stop
 flag on the host once per sweep, ``ops/nms.py``), the host cannot run ahead
 of the card, and both numbers include that wait.
 
+``entry_layouts`` (``--entry_layouts``, ``auto`` | ``default``) selects the
+serving layout of the ``e2e`` and ``streaming`` modes, as ``Predictor``
+takes it: ``auto`` serves channels-last on the card
+(``infer/layouts.py``), ``default`` contiguous NCHW. Their reports echo it
+and the memory format the network actually ran in (``memory_format``).
+
 Entry points run on the card unless ``device="cpu"`` is passed; without a
 card they raise instead of falling back to the CPU.
 
@@ -51,6 +57,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from yolo_ms_tpu_torch.infer.layouts import check_entry_layouts, memory_format_name
 from yolo_ms_tpu_torch.utils.device import resolve_device
 
 MODES = ("forward", "e2e", "train")
@@ -204,31 +211,37 @@ def _seed_model(arch: str, num_classes: int):
     return init_model(model, torch.Generator().manual_seed(0))
 
 
-def _predictor(model, arch: str, batch: int, img_size: int, num_classes: int, dev):
+def _predictor(model, arch: str, batch: int, img_size: int, num_classes: int, dev,
+               entry_layouts: str):
     """A bf16 ``Predictor`` at its default thresholds serving ``model``'s
-    weights, BN-folded."""
+    weights, BN-folded, in ``entry_layouts``."""
     from yolo_ms_tpu_torch.infer.predictor import Predictor
 
     return Predictor(arch, model.state_dict(), num_classes, input_size=(img_size, img_size),
-                     batch_size=batch, dtype=torch.bfloat16, device=dev)
+                     batch_size=batch, dtype=torch.bfloat16, entry_layouts=entry_layouts,
+                     device=dev)
 
 
 def make_loop(arch: str, batch: int, mode: str = "e2e", img_size: int = 640,
-              num_classes: int = 80, device=None) -> Loop:
+              num_classes: int = 80, device=None, entry_layouts: str = "auto") -> Loop:
     """The iteration that ``run_benchmark`` times, built on ``device``.
 
     forward -- the unfolded model in bf16, eval mode, under
                ``inference_mode``; the scalar is the sum of its raw maps in f32
     e2e     -- ``Predictor.infer`` at its defaults in bf16 (``ServingProgram``:
                uint8 normalize -> BN-folded forward -> ``fused_postprocess``,
-               one ``select`` launch, NMS); the scalar is
-               ``scores.sum() + boxes.sum()``
+               one ``select`` launch, NMS) in ``entry_layouts``; the scalar
+               is ``scores.sum() + boxes.sum()``
     train   -- ``make_train_step`` with bf16 autocast, Adam from
                ``TrainingConfig(batch_size=batch, epochs=1)``, no EMA; the
                scalar is ``total_loss``
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (forward|e2e|train)")
+    check_entry_layouts(entry_layouts)
+    if mode != "e2e" and entry_layouts != "auto":
+        raise ValueError(f"entry_layouts selects the serving layout; the {mode} mode serves "
+                         "nothing")
     dev = resolve_device(device)
     host = _inputs(mode, batch, img_size)
     model = _seed_model(arch, num_classes)
@@ -251,7 +264,7 @@ def make_loop(arch: str, batch: int, mode: str = "e2e", img_size: int = 640,
         return Loop(mode, dev, run, lambda m: m["total_loss"], state=state)
 
     if mode == "e2e":
-        predictor = _predictor(model, arch, batch, img_size, num_classes, dev)
+        predictor = _predictor(model, arch, batch, img_size, num_classes, dev, entry_layouts)
         images = torch.from_numpy(host["images"]).to(dev)
 
         def run(i):
@@ -281,25 +294,33 @@ def run_benchmark(
     k: int = 10,
     reps: int = 3,
     device=None,
+    entry_layouts: str = "auto",
 ) -> dict:
     """Measure one (arch, batch, mode) point; returns the report dict.
 
     mode:
       forward -- bf16 model forward only (raw head maps)
       e2e     -- the full serving function: uint8 normalize -> deploy-folded
-                 forward -> select + DFL decode -> batched class-aware NMS
+                 forward -> select + DFL decode -> batched class-aware NMS,
+                 in ``entry_layouts``
       train   -- the whole train step: forward + TAL assignment +
                  CIoU/BCE/DFL loss + backward + optimizer update + BN stats
     """
-    loop = make_loop(arch, batch, mode, img_size, num_classes, device)
+    loop = make_loop(arch, batch, mode, img_size, num_classes, device, entry_layouts)
     return benchmark_report(loop, arch, batch, img_size,
                             _loop_rates(loop, k, reps, loop.device))
 
 
 def benchmark_report(loop: Loop, arch: str, batch: int, img_size: int, rates) -> dict:
-    """The JAX tool's report of one ``_loop_rates`` result."""
+    """The JAX tool's report of one ``_loop_rates`` result; the ``e2e``
+    mode's also names its ``entry_layouts`` and ``memory_format``."""
     steady, wall, clamped = rates
+    layout = {}
+    if loop.predictor is not None:
+        layout = {"entry_layouts": loop.predictor.entry_layouts,
+                  "memory_format": memory_format_name(loop.predictor.serve.memory_format)}
     return {
+        **layout,
         "arch": arch,
         "mode": loop.mode,
         "batch": batch,
@@ -403,15 +424,15 @@ def run_streaming(
     reads one host flag per sweep, so each call returns only once its batch
     is nearly done.
 
-    ``entry_layouts`` (``auto`` | ``default``) is kept for the JAX CLI's sake
-    and echoed in the report: both take the same path, since XLA's entry
-    layouts (``AutoLayoutInfer``) have no counterpart here.
+    ``entry_layouts`` (``auto`` | ``default``) is the serving layout, as
+    ``Predictor`` takes it; the report echoes it and the memory format the
+    network ran in. A decoded batch is contiguous NHWC uint8, which the
+    channels-last network takes without a relayout.
     """
     from yolo_ms_tpu_torch.data import native_loader
     from yolo_ms_tpu_torch.data.decode import decode_and_resize
 
-    if entry_layouts not in ("auto", "default"):
-        raise ValueError(f"entry_layouts must be 'auto' or 'default', not {entry_layouts!r}")
+    check_entry_layouts(entry_layouts)
     dev = resolve_device(device)
     if images_dir is None:
         images_dir = os.path.join(tempfile.gettempdir(), "yolo_ms_stream_fixture")
@@ -450,8 +471,9 @@ def run_streaming(
             )
         return np.stack(imgs)
 
-    e2e = _predictor(_seed_model(arch, num_classes), arch, batch, img_size, num_classes,
-                     dev).infer
+    predictor = _predictor(_seed_model(arch, num_classes), arch, batch, img_size, num_classes,
+                           dev, entry_layouts)
+    e2e = predictor.infer
 
     def sync(out):
         out["valid"].cpu()
@@ -549,6 +571,7 @@ def run_streaming(
         "threads": threads,
         "native_loader": native,
         "entry_layouts": entry_layouts,
+        "memory_format": memory_format_name(predictor.serve.memory_format),
         "device": _device_name(dev),
         "sustained_img_per_s": round(sustained, 1),
         "host_decode_img_per_s": round(host_rate, 1),
@@ -584,7 +607,8 @@ def main(argv=None) -> None:
         "--entry_layouts",
         default="auto",
         choices=["auto", "default"],
-        help="streaming: kept for the JAX CLI's sake; both take the same path",
+        help="e2e and streaming: the serving layout ('auto' = channels-last on the "
+        "card, 'default' = contiguous NCHW)",
     )
     p.add_argument("--device", default=None, help="default: the card")
     args = p.parse_args(argv)
@@ -610,6 +634,7 @@ def main(argv=None) -> None:
             k=args.k,
             reps=args.reps,
             device=args.device,
+            entry_layouts=args.entry_layouts,
         )
     print(json.dumps(report))
 

@@ -19,6 +19,12 @@ normalize -> BN-folded bf16 forward -> ``fused_postprocess``) with
 its weights inside. ``infer.program.load_program`` serves the file with no
 model code. The program is tied to the device it was exported on (its
 weights and the devices in its graph), where JAX names ``--platforms``.
+With ``entry_layouts="auto"`` (the default, as in ``Predictor``) it is
+traced in the layout that ``infer/layouts.py:AutoLayoutInfer`` gives the
+device: channels-last weights and entry on the card, contiguous NCHW on the
+CPU. The saved file is read back once to check that it kept the
+channels-last weights; if it did not, the export raises rather than write
+an NCHW program.
 It needs no TF32 switch: its convs run in bf16, the NMS product is exact
 on 0/1 entries, and the gathers are ``torch.gather``.
 """
@@ -30,6 +36,12 @@ import os
 
 import torch
 
+from yolo_ms_tpu_torch.infer.layouts import (
+    AutoLayoutInfer,
+    check_entry_layouts,
+    memory_format_name,
+    not_channels_last,
+)
 from yolo_ms_tpu_torch.infer.program import ServingProgram
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables
 from yolo_ms_tpu_torch.models.registry import build_model
@@ -71,14 +83,17 @@ def export_program(
     device=None,
     conf_thresh: float = 0.25,
     iou_thresh: float = 0.45,
+    entry_layouts: str = "auto",
 ) -> dict:
     """Trace the serving function of a folded state_dict with
     ``torch.export`` and save the program, weights inside, to
     ``output_path``. Its calling convention: images_u8 [batch, H, W, 3]
     uint8 on the export device -> the ``fused_postprocess`` dict, as
-    ``Predictor(dtype=torch.bfloat16).infer`` returns it."""
+    ``Predictor(dtype=torch.bfloat16, entry_layouts=entry_layouts).infer``
+    returns it."""
     if not is_deploy_variables(state_dict):
         raise ValueError("export_program takes a folded state_dict: fold_batchnorm first")
+    check_entry_layouts(entry_layouts)
     dev = resolve_device(device)
     model = build_model(
         arch, num_classes=num_classes, dtype=torch.bfloat16, device=dev, deploy=True
@@ -87,23 +102,39 @@ def export_program(
     serve = ServingProgram(
         model, num_classes, conf_thresh=conf_thresh, iou_thresh=iou_thresh
     )
+    if entry_layouts == "auto":
+        AutoLayoutInfer(serve)  # converts serve's weights and entry where it is on
+    channels_last = serve.memory_format == torch.channels_last
     example = torch.zeros((batch, *img_size, 3), dtype=torch.uint8, device=dev)
     with torch.no_grad():
         program = torch.export.export(serve, (example,), strict=False)
     program.example_inputs = None  # the file holds weights and graph, not a batch
     tmp = f"{output_path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:  # a file object: no warning on the suffix
-        torch.export.save(program, f)
-    os.replace(tmp, output_path)
+    try:
+        with open(tmp, "wb") as f:  # a file object: no warning on the suffix
+            torch.export.save(program, f)
+        if channels_last:
+            lost = not_channels_last(torch.export.load(tmp).module())
+            if lost:
+                raise RuntimeError(
+                    f"torch {torch.__version__}: the saved program lost the channels-last "
+                    f"layout of {len(lost)} weights ({', '.join(lost[:4])}); export with "
+                    "entry_layouts='default'"
+                )
+        os.replace(tmp, output_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     info = {
         "output": output_path,
         "bytes": os.path.getsize(output_path),
         "device": dev.type,
         "input": f"uint8[{batch},{img_size[0]},{img_size[1]},3]",
+        "memory_format": memory_format_name(serve.memory_format),
     }
     print(
         f"Exported serving program: {output_path} ({info['bytes'] / 1e6:.1f} MB, "
-        f"device {info['device']}, input {info['input']})"
+        f"device {info['device']}, input {info['input']}, {info['memory_format']})"
     )
     return info
 
