@@ -14,7 +14,8 @@ that fails, and without a card. Phases, each printing one line:
    and misaligned ones (HW 400 / 49 / 25); nc 80 and 3; f32 and bf16; split
    pair, unsplit map and NCHW permute view; plus the tie and +100 / -60
    cases: ``mx`` and ``cid`` exactly equal, ``ltrb`` within 1e-5 (f32) /
-   1e-4 (bf16); each layout's copy route and its time per batch (L2
+   1e-4 (bf16); each launch's copy routes equal to ``expected_routes`` (the
+   route rule in Python); each layout's routes and its time per batch (L2
    flushed); then the card-only tests of ``tests/test_torch_cuda.py`` in a
    child pytest;
 4. the two trained golden fixtures through ``Predictor(device="cuda")`` in
@@ -27,7 +28,8 @@ that fails, and without a card. Phases, each printing one line:
    served through ``Predictor(entry_layouts="auto")`` (the main path) and
    ``"default"`` in turns on the same 8 batches, twice: the first pass
    holds every ``select`` launch against ``select_scales_plain`` on the same
-   maps, the second is timed; ``select.launches`` must rise by 1 per batch;
+   maps and its copy routes against ``expected_routes``, and under auto
+   every map must take the bulk-rows route; the second is timed; ``select.launches`` must rise by 1 per batch;
    outputs are checked; auto's raw maps must lie within 2e-2 (max |diff| /
    max |default|) of default's and be contiguous NHWC; the kernel tail is
    held against the plain tail on the same f32 maps; per layout the batch
@@ -196,7 +198,9 @@ The last three lines are the kernel JSON, the nvidia-smi line, and
 instead times the select kernel of another checkout of the repo (``DIR``,
 for example the parent commit unpacked with ``git archive``) against this
 one on the same inputs, in turns (parent, this, this, parent), after
-phases 1 and 2.
+phases 1 and 2; ``--variants`` (alone or beside ``--parent``) times the
+edited copies of ``select.cu`` in ``SELECT_VARIANTS`` (the copies alone,
+with no compute) against the kernel as built.
 
 The kernel JSON counts ``select`` launches on every path
 (``launches_by_path``): the serving run of phase 5 (both layouts, both
@@ -245,6 +249,7 @@ from yolo_ms_tpu_torch.models.registry import build_model, init_model
 from yolo_ms_tpu_torch.nn.blocks import BatchNorm2d, set_batch_norm_group, set_spatial_group
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
 from yolo_ms_tpu_torch.ops.kernels.select import (
+    expected_routes,
     select,
     select_plain,
     select_scales,
@@ -317,6 +322,9 @@ PEAK_RATES = (
     ("H200", 4.8e12, 67e12),
 )
 LTRB_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# select's copy route for every map of the main path (auto's contiguous NHWC
+# maps); phase 5 fails on any launch that takes another
+MAIN_PATH_ROUTE = "bulk_rows"
 # f32 card forward (TF32 off) against the CPU's: the same sums in another
 # order through ~60 conv layers. Phase 4 also prints the gap at the default
 # (TF32) conv precision, which this bound is meant to exclude.
@@ -413,10 +421,23 @@ def _layout_views(gen, b, h, w, nc, dtype, layout):
 
 
 def compare_select(pairs, dtype, label):
-    """``select_scales`` against ``select_scales_plain`` on the same maps."""
+    """``select_scales`` against ``select_scales_plain`` on the same maps,
+    and its copy routes against ``expected_routes``."""
     got = select_scales(pairs, REG_MAX)
-    routes = list(select_scales.last_routes)
+    routes = check_routes(pairs, label)
     return check_select(got, select_scales_plain(pairs, REG_MAX), dtype, label), routes, got
+
+
+def check_routes(pairs, label, only: str | None = None) -> list:
+    """The last launch's copy routes: those ``expected_routes`` predicts for
+    ``pairs`` and, with ``only``, that one route for every map."""
+    routes = list(select_scales.last_routes)
+    want = expected_routes(pairs, REG_MAX)
+    if routes != want:
+        raise AssertionError(f"{label}: select took routes {routes}, expected {want}")
+    if only is not None and any(r != only for pair in routes for r in pair):
+        raise AssertionError(f"{label}: select took routes {routes}, not {only} alone")
+    return routes
 
 
 def check_select(got, want, dtype, label) -> float:
@@ -637,11 +658,14 @@ def serve_batches() -> list:
 class SelectSpy:
     """While ``on``: every ``select_scales`` call of the post-process (one
     kernel launch) is held against ``select_scales_plain`` on the same maps
-    (``check_select``); its routes and error are kept under ``layout``. The
-    plain version launches no kernel, so the count is unchanged."""
+    (``check_select``) and its copy routes against ``expected_routes`` (and,
+    where ``only`` names one for the layout, against that route alone); its
+    routes and error are kept under ``layout``. The plain version launches
+    no kernel, so the count is unchanged."""
 
-    def __init__(self):
+    def __init__(self, only: dict | None = None):
         self.layout = None
+        self.only = only or {}
         self.calls = {}
 
     @contextlib.contextmanager
@@ -654,7 +678,8 @@ class SelectSpy:
             if select.launches != before + 1:
                 raise AssertionError(f"{self.layout}: a select call launched "
                                      f"{select.launches - before} kernels")
-            routes = list(select_scales.last_routes)
+            routes = check_routes(pairs, f"{self.layout} served maps",
+                                  self.only.get(self.layout))
             err = check_select(got, select_scales_plain(pairs, reg_max), pairs[0][0].dtype,
                                f"{self.layout} served maps")
             self.calls.setdefault(self.layout, []).append((routes, err))
@@ -784,7 +809,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     # layouts in turns (the order flips from batch to batch).
     select.launches = 0
     nms_fixed.sweeps = 0
-    spy = SelectSpy()
+    spy = SelectSpy(only={"auto": MAIN_PATH_ROUTE})
     host_ms = {layout: [] for layout in ENTRY_LAYOUTS}
     launches = dict.fromkeys(ENTRY_LAYOUTS, 0)
     for checked in (True, False):
@@ -2150,48 +2175,91 @@ def _load_select_of(checkout: str):
 def phase_parent_ab(parent: str, flush: torch.Tensor, name: str) -> None:
     """The parent checkout's select kernel against this one at the serving
     shapes, on the same inputs, timed in turns (parent, this, this, parent;
-    CUDA events, L2 flushed, median of 20 each). The parent is called once
-    per scale, as its ``select`` takes one scale."""
+    CUDA events, L2 flushed, median of 20 each); in bf16 also each scale
+    alone, on the split maps (the main path's) and the NCHW views. Loading
+    the parent's module registers its ``torch.library`` op under this one's
+    name, so each kernel is called through its own module's ``_launch`` (one
+    launch for all scales), never through the op."""
     old = _load_select_of(parent)
     info = old.build()
     print(f"ab parent build: {info['seconds']:.2f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     sides = dict(SCALE_SETS)["serving"]
+
+    def turns(pairs):
+        boxes, clss = [list(x) for x in zip(*pairs)]
+        fns = {"parent": lambda: old._launch(boxes, clss, REG_MAX),
+               "this": lambda: select_mod._launch(boxes, clss, REG_MAX)}
+        times = {k: [] for k in fns}
+        for who in ("parent", "this", "this", "parent"):
+            times[who].append(cuda_ms(fns[who], 20, flush, cover=True))
+        return fns, "; ".join(f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
+                              for k, v in times.items())
+
     for dtype in (torch.bfloat16, torch.float32):
         for layout in LAYOUTS:
             pairs = [_layout_views(gen, BATCH, s, s, NC, dtype, layout) for s in sides]
-            want = select_scales(pairs, REG_MAX)
-            got = [torch.cat(p, dim=1) for p in zip(*(old.select(b, c, REG_MAX) for b, c in pairs))]
+            fns, timed = turns(pairs)
+            want = fns["this"]()
+            routes = check_routes(pairs, f"ab {dtype} {layout}")
+            got = fns["parent"]()
+            torch.cuda.synchronize()
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise AssertionError(f"ab {dtype} {layout}: parent and this disagree on mx/cid")
             ltrb_err = (got[2] - want[2]).abs().max().item()
-            fns = {
-                "parent": lambda: [old.select(b, c, REG_MAX) for b, c in pairs],
-                "parent+cat": lambda: [torch.cat(p, dim=1) for p in zip(
-                    *(old.select(b, c, REG_MAX) for b, c in pairs))],
-                "this": lambda: select_scales(pairs, REG_MAX),
-            }
-            times = {k: [] for k in fns}
-            for who in ("parent", "this", "this", "parent"):
-                for key in fns:
-                    if key.startswith(who):
-                        times[key].append(cuda_ms(fns[key], 20, flush, cover=True))
             bound = bound_of(*select_bound(pairs, name))[0]
             print(f"ab select {str(dtype)[6:]} {layout} B={BATCH} HW=6400/1600/400 "
-                  f"(bound {bound * 1e3:.1f} us, ltrb diff {ltrb_err:.1e}): " + "; ".join(
+                  f"(bound {bound * 1e3:.1f} us, ltrb diff {ltrb_err:.1e}; parent routes "
+                  f"{_route_names(old.select_scales.last_routes)}, this "
+                  f"{_route_names(routes)}): {timed}")
+            if dtype == torch.bfloat16 and layout in ("split", "nchw"):
+                for box, cls in pairs:
+                    print(f"ab select bf16 {layout} HW={box.shape[1]} alone: "
+                          f"{turns([(box, cls)])[1]}")
+
+
+# Edited copies of csrc/select.cu that --variants times against the kernel
+# as built: name -> (a line of the source, the line put in its place)
+SELECT_VARIANTS = {
+    "copies alone (no compute on anchor-major tiles)": (
+        "      compute_rows<T>(p, tile, smem + si * p.stage_bytes);", "      ;"),
+}
+
+
+def phase_select_variants(flush: torch.Tensor, name: str) -> None:
+    """Each of ``SELECT_VARIANTS`` built into the ignored build directory and
+    timed against the kernel as built, one launch for the flagship's three
+    scales of split maps per call, in turns (kernel, variant, variant,
+    kernel; CUDA events, L2 flushed by a write, median of 20 each), in bf16
+    and f32."""
+    src = open(select_mod.SOURCE).read()
+    libs = {"kernel": select_mod._load()}
+    for i, (label, (old, new)) in enumerate(SELECT_VARIANTS.items()):
+        if src.count(old) != 1:
+            raise AssertionError(f"variant {label!r}: its line is not once in select.cu")
+        path = os.path.join(select_mod.BUILD_DIR, f"select_variant_{i}.cu")
+        os.makedirs(select_mod.BUILD_DIR, exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
+        libs[label] = select_mod.bind(select_mod.build(path)["path"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        pairs = [_layout_views(gen, BATCH, s, s, NC, dtype, "split")
+                 for s in dict(SCALE_SETS)["serving"]]
+        boxes, clss = [list(x) for x in zip(*pairs)]
+        bound = bound_of(*select_bound(pairs, name))[0]
+        for label, lib in list(libs.items())[1:]:
+            fns = {k: (lambda lib=libs[k]: select_mod.launch_with(lib, boxes, clss, REG_MAX))
+                   for k in ("kernel", label)}
+            times = {k: [] for k in fns}
+            for who in ("kernel", label, label, "kernel"):
+                times[who].append(cuda_ms(fns[who], 20, flush, cover=True))
+            print(f"variant select {str(dtype)[6:]} split B={BATCH} HW=6400/1600/400 (bound "
+                  f"{bound * 1e3:.1f} us): " + "; ".join(
                       f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
                       for k, v in times.items()))
-            if dtype == torch.bfloat16 and layout == "nchw":
-                for box, cls in pairs:
-                    per = {"parent": [], "this": []}
-                    for who in ("parent", "this", "this", "parent"):
-                        fn = old.select if who == "parent" else select
-                        per[who].append(cuda_ms(lambda: fn(box, cls, REG_MAX), 20, flush,
-                                                cover=True))
-                    print(f"ab select bf16 nchw HW={box.shape[1]} alone: " + "; ".join(
-                        f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
-                        for k, v in per.items()))
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3010,6 +3078,8 @@ def phase_benchmark(runs: list, full: dict) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
+    parser.add_argument("--variants", action="store_true",
+                        help="time the edited copies of select.cu in SELECT_VARIANTS")
     parser.add_argument("--preempt-child", nargs="+", help=argparse.SUPPRESS)
     parser.add_argument("--dp-child", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -3037,8 +3107,11 @@ def main() -> int:
     print(f"phase 2 build select.cu: {info['seconds']:.2f} s; {'; '.join(regs)}; plan: {plans}")
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    if args.parent:
-        phase_parent_ab(args.parent, flush, name)
+    if args.parent or args.variants:
+        if args.parent:
+            phase_parent_ab(args.parent, flush, name)
+        if args.variants:
+            phase_select_variants(flush, name)
         print(smi)
         return 0
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from yolo_ms_tpu_torch.ops.kernels.select import (
+    expected_routes,
     select,
     select_plain,
     select_scales,
@@ -80,22 +81,68 @@ def test_scales_match_plain(card, scales, nc, dtype, layout):
     before = select.launches
     got = select_scales(pairs, REG_MAX)
     assert select.launches == before + 1
+    assert select_scales.last_routes == expected_routes(pairs, REG_MAX)
     assert got[2].shape == (4, sum(s * s for s in SCALE_SETS[scales]), 4)
     _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
 
 
 @pytest.mark.cuda
 def test_copy_routes(card):
-    """The NCHW view goes through TMA; aligned channels-last rows through
-    16-byte row copies; HW 49 and 134-byte rows element by element."""
+    """The NCHW view goes through TMA; aligned channels-last rows (split or
+    unsplit) through asynchronous bulk copies of anchor rows; HW 49 in
+    NCHW and 134-byte rows element by element."""
     bf16 = torch.bfloat16
     select_scales([_views(card, 2, s, s, 80, bf16, "nchw") for s in (20, 7)], REG_MAX)
     assert select_scales.last_routes == [("tma", "tma"), ("elements", "elements")]
     select_scales([_views(card, 2, 20, 20, 80, bf16, layout) for layout in ("split", "unsplit")],
                   REG_MAX)
-    assert select_scales.last_routes == [("rows", "rows")] * 2
+    assert select_scales.last_routes == [("bulk_rows", "bulk_rows")] * 2
     select(*_views(card, 2, 20, 20, 3, bf16, "unsplit"), REG_MAX)
     assert select_scales.last_routes == [("elements", "elements")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bulk_rows_ragged_tiles(card, dtype, layout):
+    """The bulk-rows route on the serving maps' tile edges: HW 6400 (50 full
+    tiles of 128) and 400 (3 full, one of 16 anchors) in bf16; in f32 (64
+    anchors a tile) 400 ends on 16 too. A packed map's short last tile is
+    copied short; its dead rows are never stored."""
+    pairs = [_views(card, 3, s, s, 80, dtype, layout) for s in (80, 20)]
+    got = select_scales(pairs, REG_MAX)
+    assert select_scales.last_routes == [("bulk_rows", "bulk_rows")] * 2
+    assert got[0].shape == (3, 6800)
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg_max", [5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bulk_rows_scalar_reads(card, dtype, reg_max):
+    """Anchor-major tiles whose rows are not whole 16-byte vectors: box
+    sides of 5 bins (10 or 20 bytes) and 5-class rows are read element by
+    element; sides of 8 bins as vectors."""
+    nb = 4 * reg_max
+    pairs = []
+    for s in (20, 7):
+        flat = (torch.randn(2, s * s, nb + 5, generator=card, device="cuda") * 2.0).to(dtype)
+        pairs.append((flat[..., :nb].contiguous(), flat[..., nb:].contiguous()))
+    got = select_scales(pairs, reg_max)
+    assert select_scales.last_routes == expected_routes(pairs, reg_max)
+    _assert_equal_to_plain(got, select_scales_plain(pairs, reg_max), dtype)
+
+
+@pytest.mark.cuda
+def test_mixed_layouts_of_one_scale(card):
+    """An NCHW box view beside a contiguous NHWC class map: one tile has one
+    layout, so the box map is copied element by element, anchor-major."""
+    box = (torch.randn(2, NB, 20, 20, generator=card, device="cuda") * 2.0).to(torch.bfloat16)
+    cls = (torch.randn(2, 400, 80, generator=card, device="cuda") * 2.0).to(torch.bfloat16)
+    pairs = [(box.permute(0, 2, 3, 1).flatten(1, 2), cls)]
+    got = select_scales(pairs, REG_MAX)
+    assert select_scales.last_routes == [("elements", "bulk_rows")]
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -203,7 +250,8 @@ def test_channels_last_serving_on_card(card, arch):
     "auto")`` and ``"default"`` on the same images: the same detections;
     under auto every conv's output is channels-last on the card (inputs
     too, but the C2f channel slices), and ``select`` takes no TMA route (its
-    maps are contiguous NHWC rows)."""
+    maps are contiguous NHWC rows): the box maps (256-byte f32 rows) take
+    the bulk-rows route, the 3-class maps (12-byte rows) the element one."""
     import os
 
     import numpy as np
@@ -239,12 +287,13 @@ def test_channels_last_serving_on_card(card, arch):
     finally:
         for h in hooks:
             h.remove()
-    routes = [r for pair in select_scales.last_routes for r in pair]
+    routes = list(select_scales.last_routes)
     want = default.infer(images)
     torch.cuda.synchronize()
     assert strided_out == []
     assert all(".m_0.conv1." in n for n in strided_in), strided_in
-    assert "tma" not in routes, routes
+    assert "tma" not in [r for pair in routes for r in pair], routes
+    assert routes == [("bulk_rows", "elements")] * 3, routes
     assert torch.equal(got["valid"], want["valid"])
     assert torch.equal(got["classes"], want["classes"])
     torch.testing.assert_close(got["boxes"], want["boxes"], rtol=0.0, atol=1e-3)

@@ -21,41 +21,58 @@
 //   numbered across (scale, image, anchor tile); each CTA walks the tiles
 //   with a stride of gridDim.x, and the grid is as many CTAs as fit on the
 //   card at once (two per SM), so the small scales run beside the large one.
-// - Each tile is staged in shared memory as a [4*reg_max + nc, T] slab, one
-//   row per channel, in a ring of 2-4 stages (three 36 KB stages for bf16
-//   nc=80), so the next tiles load while one is computed. The copy route is
-//   chosen per map on the host:
-//   * TMA (the main path): a map whose anchor stride is 1 (the
-//     permute(0, 2, 3, 1) view of the NCHW head output) is a 3-D tensor
-//     [B, C, HW] to the Tensor Memory Accelerator. One thread issues one
-//     `cp.async.bulk.tensor` per map and tile; completion is counted on an
-//     mbarrier per stage, and anchors past HW are zero-filled by the
-//     hardware. TMA was taken over 16-byte cp.async because it spends no
-//     thread instructions or registers on addresses, and handles the ragged
-//     last tile itself.
-//   * channel rows (split and unsplit channels-last maps, 16-byte aligned):
-//     each thread loads 16 B of one anchor's row into registers and stores
-//     the elements transposed into the same [C, T] slab.
-//   * elements: any map whose rows or strides are not 16-byte aligned (for
-//     example HW = 49, or the 134-byte rows of an unsplit nc = 3 map) is
-//     copied element by element into the same slab, in the same kernel.
-// - Compute is split by role into four groups of threads; each thread holds
-//   two neighbouring anchors (one 32-bit word of a bf16 row), so consecutive
-//   threads read consecutive words (no bank conflicts) and every load and
-//   compare serves two anchors. Group g first takes a quarter of the classes
-//   (max and first index by a strict `>` in ascending channel order, on the
-//   bf16 pairs as they are) and the max over the bins of box side g; after
-//   one barrier, group 0 merges the class maxima (a later quarter wins only
-//   when strictly greater) and group g sums side g in f32 with the shift
-//   taken from all four side maxima. A first version with one anchor per
-//   thread and a class half / box half split of the CTA ran slower: its box
-//   warps, one per scheduler, could not keep up with the copies.
+// - Each tile is staged in shared memory in a ring of 2-4 stages (three
+//   36 KB stages for bf16 nc=80). Copies are asynchronous: thread 0 arms the
+//   stage's mbarrier with the bytes it asks for and issues them, and the next
+//   tiles are in flight while one is computed. The copy route is chosen per
+//   map on the host:
+//   * bulk rows (the main path: the contiguous NHWC head maps of
+//     entry_layouts="auto"): a map whose channel stride is 1 and whose
+//     anchor and batch strides and base are 16-byte aligned. A tile of T
+//     anchors lands anchor-major, [T, C] at C elements a row. Packed rows
+//     (anchor stride C) are one byte range per tile, fetched by one 1-D
+//     `cp.async.bulk` of the tile's live rows (16 KB of box and 20 KB of
+//     class rows at T = 128 in bf16); strided rows (an unsplit map's
+//     slices) by one `cp.async.bulk.tensor` of a 3-D map {C, HW, B}, box
+//     {C, T, 1}, whose rows past HW the hardware fills with zeros.
+//   * TMA (NCHW views): a map whose anchor stride is 1 (the
+//     permute(0, 2, 3, 1) view of an NCHW head output) is a 3-D tensor
+//     [B, C, HW] to the Tensor Memory Accelerator, one `cp.async.bulk.tensor`
+//     per map and tile into a channel-major [C, T] slab.
+//   * elements: a map whose rows or strides are not 16-byte aligned (HW =
+//     49 in NCHW, the 134-byte rows of an unsplit nc = 3 map, a 6-byte class
+//     row) is copied element by element by all threads, anchor-major. A
+//     scale whose one map would take TMA and the other not copies both
+//     anchor-major (the TMA one by elements), so each tile has one layout.
+// - Compute on anchor-major tiles (bulk rows, elements): four neighbouring
+//   threads share one anchor. Thread j reads the bins of box side j and
+//   every fourth 16-byte chunk of the class row from j on, as 16-byte
+//   vectors where the rows allow it (in bf16 two neighbouring classes or
+//   bins per compare or max, as bf16x2); two shuffles give the quad the row
+//   max of the bins (the shift) and the first-index class max (a later lane
+//   wins only when strictly greater, or equal at a lower index). Each thread
+//   then sums side j in f32, in the same order as the channel-major compute,
+//   so both give the same ltrb; the quad stores ltrb as one 16-byte row. No
+//   transpose, no shared-memory hand-over and no barrier inside the tile.
+// - Compute on channel-major tiles (TMA) is split by role into four groups
+//   of threads; each thread holds two neighbouring anchors (one 32-bit word
+//   of a bf16 row), so consecutive threads read consecutive words and every
+//   load and compare serves two anchors. Group g first takes a quarter of
+//   the classes (max and first index by a strict `>` in ascending channel
+//   order, on the bf16 pairs as they are) and the max over the bins of box
+//   side g; after one barrier, group 0 merges the class maxima and group g
+//   sums side g in f32 with the shift taken from all four side maxima.
 // - mx, cid and ltrb are stored straight into the concatenated [B, A] /
-//   [B, A, 4] outputs.
+//   [B, A, 4] outputs; anchors past HW are never stored.
 // No tensor cores: the TPU kernel's [4*reg_max, 8] contraction is pinned to
 // HIGHEST precision, which on this card would be TF32 or bf16, and the f32
-// work is a tenth of the time the bytes take. The kernel allocates nothing,
-// launches on the caller's stream and does not synchronize.
+// work is a tenth of the time the bytes take at the card's f32 rate. As
+// issued instructions (an expf is about eight) it is not free: on an NVIDIA
+// H100 80GB HBM3 at 700 W the flagship launch above takes about 47 us on
+// bulk rows or TMA with L2 flushed by a write, and its copies alone about
+// 39 us (chip_smoke.py phases 3 and 5 and its --variants print these
+// times). The kernel allocates nothing, launches on the caller's stream and
+// does not synchronize.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -65,7 +82,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // four groups of 64 threads, two anchors each
+constexpr int kThreads = 256;  // 4 groups of 64 (channel-major tiles), 64 quads (anchor-major)
 constexpr int kMaxScales = 4;
 constexpr int kSmemLimit = 227 * 1024;   // opt-in shared memory of one CTA
 constexpr int kSmemTarget = 113 * 1024;  // two CTAs per SM
@@ -74,13 +91,15 @@ constexpr int kBarrierBytes = 64;        // one mbarrier per stage, at most 4
 constexpr int kMaxPairs = 64;            // anchor pairs of the largest tile
 constexpr int kMaxDevices = 64;
 
-enum Route : int { kTma = 0, kRows = 1, kElems = 2 };
+// Copy routes as reported to the host. Code 1 is not used.
+enum Route : int { kTma = 0, kElems = 2, kBulk = 3 };
 
 struct Map {
-  CUtensorMap tma;  // the kTma route only
+  CUtensorMap tma;  // kTma, and kBulk on strided rows
   const void* ptr;
   long long sb, shw, sc;  // element strides
   int route;
+  int packed;  // kBulk: rows follow each other (shw == channels), one 1-D copy a tile
 };
 
 struct Scale {
@@ -99,14 +118,12 @@ struct Params {
   float4* ltrb;
   int n_scales, n_tiles, nc, reg_max;
   int tile, tile_shift, stages, stage_bytes;
+  int box_vec, cls_vec;  // anchor-major rows read as 16-byte vectors
 };
 
 struct TileAt {
   int scale, b, a0;
 };
-
-__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
-__device__ __forceinline__ void set_zero(__nv_bfloat16& v) { v = __float2bfloat16(0.f); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -158,79 +175,77 @@ __device__ __forceinline__ TileAt locate(const Params& p, int tile) {
   return {s, b, (local - b * p.scale[s].tiles_per_image) << p.tile_shift};
 }
 
-// The two register routes: the map's rows of anchors [a0, a0 + T) of image b
-// into dst[c * T + a]; anchors past HW are zero.
+// The elements route: the map's rows of anchors [a0, a0 + n) of image b
+// into dst[a * channels + c], anchor-major, by all threads.
 template <typename T>
-__device__ void stage_by_threads(const Params& p, const Map& m, int channels, int b, int a0,
-                                 int hw, T* dst) {
+__device__ void stage_elements(const Map& m, int channels, int b, int a0, int n, int tile_shift,
+                               T* dst) {
   const T* base = static_cast<const T*>(m.ptr) + (long long)b * m.sb;
-  const int tmask = p.tile - 1;
-  if (m.route == kRows) {
-    constexpr int kVec = 16 / sizeof(T);
-    const int items = (channels / kVec) << p.tile_shift;
-    for (int e0 = threadIdx.x; e0 < items; e0 += 4 * kThreads) {
-      uint4 v[4];
+  const int tmask = (1 << tile_shift) - 1;
+  const int items = channels << tile_shift;
+  for (int e0 = threadIdx.x; e0 < items; e0 += 8 * kThreads) {
+    T v[8];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int e = e0 + k * kThreads;
-        const int a = e & tmask;
-        v[k] = make_uint4(0u, 0u, 0u, 0u);
-        if (e < items && a0 + a < hw)
-          v[k] = *reinterpret_cast<const uint4*>(base + (long long)(a0 + a) * m.shw +
-                                                 (e >> p.tile_shift) * kVec);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int e = e0 + k * kThreads;
-        if (e < items) {
-          const T* vals = reinterpret_cast<const T*>(&v[k]);
-          T* col = dst + (((e >> p.tile_shift) * kVec) << p.tile_shift) + (e & tmask);
-#pragma unroll
-          for (int i = 0; i < kVec; ++i) col[i << p.tile_shift] = vals[i];
-        }
-      }
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * kThreads, a = e & tmask;
+      if (e < items && a < n)
+        v[k] = base[(long long)(a0 + a) * m.shw + (long long)(e >> tile_shift) * m.sc];
     }
-  } else {
-    const int items = channels << p.tile_shift;
-    for (int e0 = threadIdx.x; e0 < items; e0 += 8 * kThreads) {
-      T v[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = e0 + k * kThreads;
-        const int a = e & tmask;
-        set_zero(v[k]);
-        if (e < items && a0 + a < hw)
-          v[k] = base[(long long)(a0 + a) * m.shw + (long long)(e >> p.tile_shift) * m.sc];
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = e0 + k * kThreads;
-        if (e < items) dst[e] = v[k];
-      }
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * kThreads, a = e & tmask;
+      if (e < items && a < n) dst[a * channels + (e >> tile_shift)] = v[k];
     }
   }
 }
 
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bytes an asynchronous copy of one map brings for a tile of n live anchors.
+template <typename T>
+__device__ __forceinline__ uint32_t copy_bytes(const Map& m, int channels, int n, int tile) {
+  if (m.route == kElems) return 0;
+  return (uint32_t)((m.route == kBulk && m.packed ? n : tile) * channels * (int)sizeof(T));
+}
+
+template <typename T>
+__device__ __forceinline__ void issue_copy(const Map& m, int channels, const TileAt& at, int n,
+                                           T* dst, uint64_t* bar) {
+  if (m.route == kTma) {
+    tma_load_3d(dst, &m.tma, bar, at.a0, 0, at.b);
+  } else if (m.route == kBulk && m.packed) {
+    const T* src = static_cast<const T*>(m.ptr) + (long long)at.b * m.sb + (long long)at.a0 * m.shw;
+    bulk_load(dst, src, (uint32_t)(n * channels * (int)sizeof(T)), bar);
+  } else if (m.route == kBulk) {
+    tma_load_3d(dst, &m.tma, bar, 0, at.a0, at.b);
+  }
+}
+
 // Start filling one stage with one tile: thread 0 arms the stage's barrier
-// with the bytes TMA will bring and issues the copies; every thread copies
-// the maps of the register routes.
+// with the bytes the asynchronous copies will bring and issues them; every
+// thread copies the maps of the elements route.
 template <typename T>
 __device__ void issue_tile(const Params& p, int tile, unsigned char* stage, uint64_t* bar) {
   const TileAt at = locate(p, tile);
   const Scale& sc = p.scale[at.scale];
   const int nb = 4 * p.reg_max;
-  T* box_t = reinterpret_cast<T*>(stage);
-  T* cls_t = box_t + (nb << p.tile_shift);
+  const int n = min(p.tile, sc.hw - at.a0);
+  T* box_s = reinterpret_cast<T*>(stage);
+  T* cls_s = box_s + (nb << p.tile_shift);
   if (threadIdx.x == 0) {
-    uint32_t bytes = 0;
-    if (sc.box.route == kTma) bytes += (nb << p.tile_shift) * sizeof(T);
-    if (sc.cls.route == kTma) bytes += (p.nc << p.tile_shift) * sizeof(T);
-    mbar_arrive(bar, bytes);
-    if (sc.box.route == kTma) tma_load_3d(box_t, &sc.box.tma, bar, at.a0, 0, at.b);
-    if (sc.cls.route == kTma) tma_load_3d(cls_t, &sc.cls.tma, bar, at.a0, 0, at.b);
+    mbar_arrive(bar, copy_bytes<T>(sc.box, nb, n, p.tile) + copy_bytes<T>(sc.cls, p.nc, n, p.tile));
+    issue_copy<T>(sc.box, nb, at, n, box_s, bar);
+    issue_copy<T>(sc.cls, p.nc, at, n, cls_s, bar);
   }
-  if (sc.box.route != kTma) stage_by_threads<T>(p, sc.box, nb, at.b, at.a0, sc.hw, box_t);
-  if (sc.cls.route != kTma) stage_by_threads<T>(p, sc.cls, p.nc, at.b, at.a0, sc.hw, cls_t);
+  if (sc.box.route == kElems) stage_elements<T>(sc.box, nb, at.b, at.a0, n, p.tile_shift, box_s);
+  if (sc.cls.route == kElems) stage_elements<T>(sc.cls, p.nc, at.b, at.a0, n, p.tile_shift, cls_s);
 }
 
 // Two neighbouring anchors of one channel row: one 32-bit word in bf16, one
@@ -377,6 +392,176 @@ __device__ void compute_tile(const Params& p, int tile, const unsigned char* sta
   if (live1) ltrb[(out + 1) * 4 + g] = num.y / den.y;
 }
 
+// One element of an anchor-major row as f32, and 16 bytes of a row as the
+// elements they hold.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __uint_as_float((uint32_t)__bfloat16_as_ushort(v) << 16);
+}
+__device__ __forceinline__ void unpack(const uint4& w, float (&x)[4]) {
+  x[0] = __uint_as_float(w.x), x[1] = __uint_as_float(w.y);
+  x[2] = __uint_as_float(w.z), x[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4& w, float (&x)[8]) {
+  const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[2 * i] = __uint_as_float(v[i] << 16), x[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
+}
+
+// f(k, x) for the elements x = row[k] of the units u0, u0 + du, ... below
+// end, in ascending order: a unit is one element, or with vec the 16 bytes
+// starting at element u * (16 / sizeof(T)).
+template <typename T, typename F>
+__device__ __forceinline__ void visit(const T* row, int u0, int du, int end, bool vec, F&& f) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec) {
+    for (int k = u0 * kVec; k < end; k += du * kVec) {
+      float x[kVec];
+      unpack(*reinterpret_cast<const uint4*>(row + k), x);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) f(k + i, x[i]);
+    }
+  } else {
+    for (int k = u0; k < end; k += du) f(k, to_f32(row[k]));
+  }
+}
+
+constexpr uint32_t kNoClass = 0xffffu;  // above every class id (nc <= 65535)
+
+// The max and its first index over the class units j, j + 4, ... of one
+// anchor-major row, by a strict `>` in ascending order. The id starts at
+// the lane's first class, so a row of -inf gives that class; a lane with
+// no class gives (-inf, kNoClass), which loses every tie.
+template <typename T>
+__device__ __forceinline__ void class_max_row(const T* row, int j, int nc, bool vec, float* best,
+                                              uint32_t* id) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int first = vec ? j * kVec : j;
+  float b = __int_as_float(0xff800000);  // -inf
+  uint32_t i = first < nc ? first : kNoClass;
+  visit(row, j, 4, nc, vec, [&](int k, float x) {
+    if (x > b) b = x, i = k;
+  });
+  *best = b;
+  *id = i;
+}
+
+// bf16 rows as 16-byte vectors: two neighbouring classes per compare, the
+// even classes in the low halves, the odd ones in the high halves.
+template <>
+__device__ __forceinline__ void class_max_row(const __nv_bfloat16* row, int j, int nc, bool vec,
+                                              float* best, uint32_t* id) {
+  if (!vec) {
+    float b = __int_as_float(0xff800000);
+    uint32_t i = j < nc ? j : kNoClass;
+    for (int k = j; k < nc; k += 4) {
+      const float x = to_f32(row[k]);
+      if (x > b) b = x, i = k;
+    }
+    *best = b;
+    *id = i;
+    return;
+  }
+  uint32_t b = 0xff80ff80u;  // -inf, -inf
+  uint32_t ids = j * 8 < nc ? (uint32_t)(j * 8) * 0x10001u + 0x10000u : 0xffffffffu;
+  for (int k = j * 8; k < nc; k += 32) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + k);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const uint32_t k2 = (uint32_t)k * 0x10001u + 0x10000u;  // ids of w[0]'s two classes
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t gt;  // 0xffff in each half where w[q] > b
+      asm("set.gt.u32.bf16x2 %0, %1, %2;" : "=r"(gt) : "r"(w[q]), "r"(b));
+      b = (b & ~gt) | (w[q] & gt);
+      ids = (ids & ~gt) | ((k2 + q * 0x20002u) & gt);
+    }
+  }
+  const float lo = __uint_as_float(b << 16), hi = __uint_as_float(b & 0xffff0000u);
+  const uint32_t ilo = ids & 0xffffu, ihi = ids >> 16;
+  const bool take_hi = hi > lo || (hi == lo && ihi < ilo);
+  *best = take_hi ? hi : lo;
+  *id = take_hi ? ihi : ilo;
+}
+
+// The max over the reg_max bins of one box side.
+template <typename T>
+__device__ __forceinline__ float side_max(const T* side, int reg_max, bool vec) {
+  float m = __int_as_float(0xff800000);
+  visit(side, 0, 1, reg_max, vec, [&](int, float x) { m = fmaxf(m, x); });
+  return m;
+}
+
+template <>
+__device__ __forceinline__ float side_max(const __nv_bfloat16* side, int reg_max, bool vec) {
+  if (!vec) {
+    float m = __int_as_float(0xff800000);
+    for (int k = 0; k < reg_max; ++k) m = fmaxf(m, to_f32(side[k]));
+    return m;
+  }
+  uint32_t m = 0xff80ff80u;
+  for (int k = 0; k < reg_max; k += 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(side + k);
+    m = Pair<__nv_bfloat16>::vmax(Pair<__nv_bfloat16>::vmax(m, v.x), v.y);
+    m = Pair<__nv_bfloat16>::vmax(Pair<__nv_bfloat16>::vmax(m, v.z), v.w);
+  }
+  const float2 f = Pair<__nv_bfloat16>::to_float2(m);
+  return fmaxf(f.x, f.y);
+}
+
+// An anchor-major tile ([T, 4*reg_max] box rows, then [T, nc] class rows):
+// lanes 4i..4i+3 of a warp share anchor base + i; lane j works on box side
+// j and on the class units j, j + 4, ...; the quad's results meet by
+// shuffles.
+template <typename T>
+__device__ void compute_rows(const Params& p, int tile, const unsigned char* stage) {
+  const TileAt at = locate(p, tile);
+  const Scale& sc = p.scale[at.scale];
+  const int nb = 4 * p.reg_max;
+  const T* box_s = reinterpret_cast<const T*>(stage);
+  const T* cls_s = box_s + (nb << p.tile_shift);
+  const int n = min(p.tile, sc.hw - at.a0);
+  const int lane = threadIdx.x & 31, j = lane & 3;
+  const long long out0 = (long long)at.b * p.anchors + sc.out_off + at.a0;
+  for (int base = (threadIdx.x >> 5) * 8; base < n; base += kThreads / 4) {
+    const int a = base + (lane >> 2);
+    const bool live = a < n;
+    const int ar = live ? a : base;  // a lane past the tile's end reads a live row
+
+    // classes: the first index of the max; a later lane's class wins a tie
+    // only at a lower index
+    float best;
+    uint32_t id;
+    class_max_row(cls_s + ar * p.nc, j, p.nc, p.cls_vec, &best, &id);
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const uint32_t oid = __shfl_xor_sync(0xffffffffu, id, o);
+      if (ob > best || (ob == best && oid < id)) best = ob, id = oid;
+    }
+
+    // box side j, shifted by the max over all 4*reg_max bins of the anchor
+    const T* side = box_s + ar * nb + j * p.reg_max;
+    float c = side_max(side, p.reg_max, p.box_vec);
+    c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 1));
+    c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 2));
+    float num = 0.f, den = 0.f, fk = 0.f;
+    visit(side, 0, 1, p.reg_max, p.box_vec, [&](int, float x) {
+      const float e = expf(fmaxf(x - c, -60.f));
+      num += fk * e;
+      den += e;
+      fk += 1.f;
+    });
+
+    if (live) {
+      const long long out = out0 + a;
+      reinterpret_cast<float*>(p.ltrb)[out * 4 + j] = num / den;
+      if (j == 0) p.mx[out] = best;
+      if (j == 1) p.cid[out] = (int32_t)id;
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) select_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -402,9 +587,13 @@ __global__ void __launch_bounds__(kThreads, 2) select_kernel(const __grid_consta
     const int si = i % p.stages;
     while (!mbar_try_wait(&full[si], (i / p.stages) & 1)) {
     }
-    __syncthreads();  // the register routes' stores are visible too
-    compute_tile<T>(p, first + i * step, smem + si * p.stage_bytes, part);
-    // order this tile's generic-proxy accesses before the next TMA write
+    __syncthreads();  // the elements route's stores are visible too
+    const int tile = first + i * step;
+    if (p.scale[locate(p, tile).scale].box.route == kTma)
+      compute_tile<T>(p, tile, smem + si * p.stage_bytes, part);
+    else
+      compute_rows<T>(p, tile, smem + si * p.stage_bytes);
+    // order this tile's generic-proxy accesses before the next asynchronous copy's writes
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
   }
@@ -480,6 +669,9 @@ cudaError_t fit(const Plan& plan, int* per_sm, int* sms) {
   return cudaSuccess;
 }
 
+// The copy route of one map (see the note at the top), with its tensor map
+// encoded where the route takes one. ops/kernels/select.py:expected_routes
+// is the same rule in Python.
 int pick_route(Map* m, int channels, int elem_bytes, long long hw, long long batch, int tile,
                CUtensorMapDataType dtype) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(m->ptr);
@@ -487,21 +679,36 @@ int pick_route(Map* m, int channels, int elem_bytes, long long hw, long long bat
   // one image: the batch stride is never stepped, so any aligned one will do
   const long long sb = batch > 1 ? m->sb : m->shw == 1 ? m->sc * channels : m->shw * hw;
   EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  m->packed = 0;
   if (m->shw == 1 && channels <= 256 && addr % 16 == 0 && m->sc > 0 && sb > 0 &&
       (m->sc * es) % 16 == 0 && (sb * es) % 16 == 0 && encode) {
     const cuuint64_t dims[3] = {(cuuint64_t)hw, (cuuint64_t)channels, (cuuint64_t)batch};
     const cuuint64_t strides[2] = {(cuuint64_t)(m->sc * es), (cuuint64_t)(sb * es)};
     const cuuint32_t box[3] = {(cuuint32_t)tile, (cuuint32_t)channels, 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
     const CUresult r = encode(&m->tma, dtype, 3, const_cast<void*>(m->ptr), dims, strides, box,
                               unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r == CUDA_SUCCESS) return kTma;
   }
-  if (m->sc == 1 && addr % 16 == 0 && (m->shw * es) % 16 == 0 && (sb * es) % 16 == 0 &&
-      (channels * es) % 16 == 0)
-    return kRows;
+  if (m->sc == 1 && addr % 16 == 0 && m->shw > 0 && sb > 0 && (m->shw * es) % 16 == 0 &&
+      (sb * es) % 16 == 0 && (channels * es) % 16 == 0) {
+    if (m->shw == channels) {
+      m->packed = 1;
+      return kBulk;
+    }
+    if (channels <= 256 && encode) {
+      const cuuint64_t dims[3] = {(cuuint64_t)channels, (cuuint64_t)hw, (cuuint64_t)batch};
+      const cuuint64_t strides[2] = {(cuuint64_t)(m->shw * es), (cuuint64_t)(sb * es)};
+      const cuuint32_t box[3] = {(cuuint32_t)channels, (cuuint32_t)tile, 1};
+      const CUresult r = encode(&m->tma, dtype, 3, const_cast<void*>(m->ptr), dims, strides, box,
+                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r == CUDA_SUCCESS) return kBulk;
+    }
+  }
   return kElems;
 }
 
@@ -540,7 +747,7 @@ extern "C" int yolo_select_plan(int dtype, int nc, int reg_max, int32_t* out) {
 // pointer, box strides (batch, anchor, channel), cls pointer, cls strides,
 // HW; strides are in elements. Outputs are mx [B, A] f32, cid [B, A] i32 and
 // ltrb [B, A, 4] f32 with A the sum of the scales' HW. routes receives two
-// values per scale (box, cls): 0 TMA, 1 channel rows, 2 elements. Returns
+// values per scale (box, cls): 0 TMA, 2 elements, 3 bulk rows. Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int yolo_select_launch(int dtype, int n_scales, const int64_t* desc, int64_t batch,
                                   int nc, int reg_max, void* mx, void* cid, void* ltrb,
@@ -572,6 +779,9 @@ extern "C" int yolo_select_launch(int dtype, int n_scales, const int64_t* desc, 
     sc.first_tile = (int)tiles;
     sc.box.route = pick_route(&sc.box, 4 * reg_max, elem_bytes, hw, batch, plan.tile, tdt);
     sc.cls.route = pick_route(&sc.cls, nc, elem_bytes, hw, batch, plan.tile, tdt);
+    // a tile is channel-major (both maps by TMA) or anchor-major (neither)
+    if ((sc.box.route == kTma) != (sc.cls.route == kTma))
+      (sc.box.route == kTma ? sc.box : sc.cls).route = kElems;
     routes[2 * s] = sc.box.route;
     routes[2 * s + 1] = sc.cls.route;
     anchors += hw;
@@ -590,6 +800,9 @@ extern "C" int yolo_select_launch(int dtype, int n_scales, const int64_t* desc, 
   p.tile_shift = plan.tile_shift;
   p.stages = plan.stages;
   p.stage_bytes = plan.stage_bytes;
+  const int vec = 16 / elem_bytes;  // elements in 16 bytes
+  p.box_vec = reg_max % vec == 0;
+  p.cls_vec = nc % vec == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch<float>(p, plan, st) : launch<__nv_bfloat16>(p, plan, st);
 }

@@ -21,8 +21,24 @@ It replaces the TPU Pallas kernel ``yolo_ms_tpu/ops/pallas/select.py``
 use into the package's ``build/`` directory and loaded with ctypes) or
 raises; on CPU tensors it runs ``select_scales_plain``. ``select.launches``
 counts kernel launches; ``select_scales.last_routes`` names the copy route
-the last launch took for each (box, cls) map. The TPU kernel's limits (HW a
-multiple of 16, nc <= 255, the VMEM block budget) do not apply.
+the last launch took for each (box, cls) map, and ``expected_routes(pairs)``
+predicts it from the maps' strides, dtype and alignment:
+
+- ``bulk_rows``: channel stride 1, base, anchor and batch strides 16-byte
+  aligned, rows a multiple of 16 bytes. The main path's maps (the contiguous
+  NHWC head outputs of ``entry_layouts="auto"``) take it: each tile of
+  anchors arrives anchor-major by one asynchronous bulk copy per map (a 1-D
+  copy of packed rows, or a 3-D tensor map for the strided rows of an
+  unsplit map's slices).
+- ``tma``: anchor stride 1 (the NCHW permute views of
+  ``entry_layouts="default"``), aligned channel and batch strides, at most
+  256 channels; one tensor-map copy per map and tile, channel-major.
+- ``elements``: any other map (HW 49 in NCHW, 6- or 134-byte rows, an
+  unaligned base), copied element by element; also the TMA-able map of a
+  scale whose other map takes no TMA.
+
+The TPU kernel's limits (HW a multiple of 16, nc <= 255, the VMEM block
+budget) do not apply.
 """
 
 from __future__ import annotations
@@ -47,7 +63,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl",
 )
 MAX_SCALES = 4
-ROUTES = ("tma", "rows", "elements")  # the kernel's copy route codes 0, 1, 2
+ROUTES = {0: "tma", 2: "elements", 3: "bulk_rows"}  # the kernel's copy route codes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -63,11 +79,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the select kernel cannot be built")
 
 
-def build() -> dict:
-    """Compile ``csrc/select.cu`` unless a library of the same source and
-    flags is already in ``build/``. Returns {'path', 'seconds', 'log'}
-    (seconds 0.0 and an empty log when the library was already there)."""
-    with open(SOURCE, "rb") as f:
+def build(source: str = SOURCE) -> dict:
+    """Compile ``csrc/select.cu`` (or another source of the same C
+    interface) unless a library of the same source and flags is already in
+    ``build/``. Returns {'path', 'seconds', 'log'} (seconds 0.0 and an empty
+    log when the library was already there)."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     path = os.path.join(BUILD_DIR, f"libselect_{digest[:16]}.so")
     if os.path.exists(path):
@@ -76,7 +93,7 @@ def build() -> dict:
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
         capture_output=True,
         text=True,
     )
@@ -87,18 +104,21 @@ def build() -> dict:
     return {"path": path, "seconds": seconds, "log": proc.stderr}
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a library built by ``build`` and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    lib.yolo_select_launch.argtypes = [i32, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.yolo_select_launch.restype = i32
+    lib.yolo_select_plan.argtypes = [i32, i32, i32, ptr]
+    lib.yolo_select_plan.restype = i32
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        lib.yolo_select_launch.argtypes = [
-            i32, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr,
-        ]
-        lib.yolo_select_launch.restype = i32
-        lib.yolo_select_plan.argtypes = [i32, i32, i32, ptr]
-        lib.yolo_select_plan.restype = i32
-        _lib = lib
+        _lib = bind(build()["path"])
     return _lib
 
 
@@ -140,6 +160,43 @@ def _check(pairs: Sequence, reg_max: int) -> None:
             raise ValueError(f"maps on {box.device}, {cls.device} and {box0.device}")
 
 
+def _map_route(t: torch.Tensor, hw: int, batch: int) -> str:
+    """``pick_route`` of ``csrc/select.cu`` for one [B, HW, C] map, taking
+    ``cuTensorMapEncodeTiled`` to succeed where the rule asks for it."""
+    es = t.element_size()
+    channels = t.shape[2]
+    sb, shw, sc = t.stride()
+    aligned = t.data_ptr() % 16 == 0
+    if batch == 1:  # the batch stride is never stepped
+        sb = sc * channels if shw == 1 else shw * hw
+    if (shw == 1 and channels <= 256 and aligned and sc > 0 and sb > 0
+            and sc * es % 16 == 0 and sb * es % 16 == 0):
+        return "tma"
+    if (sc == 1 and aligned and shw > 0 and sb > 0 and shw * es % 16 == 0
+            and sb * es % 16 == 0 and channels * es % 16 == 0
+            and (shw == channels or channels <= 256)):
+        return "bulk_rows"
+    return "elements"
+
+
+def expected_routes(pairs: Sequence, reg_max: int = 16) -> list:
+    """The (box, cls) copy routes that ``select_scales(pairs)`` takes on the
+    card, one pair per scale with anchors (the rule of ``csrc/select.cu``'s
+    ``pick_route``, from the maps' strides, dtype and base alignment; see
+    the module docstring). Runs on tensors of any device."""
+    _check(pairs, reg_max)
+    routes = []
+    for box, cls in pairs:
+        batch, hw = box.shape[:2]
+        if hw == 0:
+            continue
+        r_box, r_cls = _map_route(box, hw, batch), _map_route(cls, hw, batch)
+        if (r_box == "tma") != (r_cls == "tma"):  # one layout per tile: anchor-major
+            r_box, r_cls = ["elements" if r == "tma" else r for r in (r_box, r_cls)]
+        routes.append((r_box, r_cls))
+    return routes
+
+
 def select_plain(box: torch.Tensor, cls: torch.Tensor, reg_max: int = 16):
     """One scale in plain torch ops (max / argmax / dfl_expectation)."""
     b, hw, _ = box.shape
@@ -159,6 +216,12 @@ def select_scales_plain(pairs: Sequence, reg_max: int = 16):
 def _launch(boxes: list, clss: list, reg_max: int):
     """The CUDA implementation of the op: one launch of ``csrc/select.cu``
     for all scales, or an error."""
+    return launch_with(_load(), boxes, clss, reg_max)
+
+
+def launch_with(lib: ctypes.CDLL, boxes: list, clss: list, reg_max: int):
+    """``_launch`` through a given library of ``select.cu``'s C interface
+    (``bind``): the kernel as built, or an edited copy being measured."""
     pairs = list(zip(boxes, clss))
     _check(pairs, reg_max)
     for t in (*boxes, *clss):
@@ -181,7 +244,6 @@ def _launch(boxes: list, clss: list, reg_max: int):
         desc += [box.data_ptr(), *box.stride(), cls.data_ptr(), *cls.stride(), box.shape[1]]
     desc_arr = (ctypes.c_int64 * len(desc))(*desc)
     routes = (ctypes.c_int32 * (2 * len(pairs)))()
-    lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yolo_select_launch(
