@@ -8,7 +8,8 @@ that fails, and without a card. Phases, each printing one line:
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` names it;
 2. build: compiles ``yolo_ms_tpu_torch/csrc/select.cu`` into the ignored
    ``yolo_ms_tpu_torch/build/`` directory and prints its registers and its
-   launch plan (anchors per tile, ring stages, shared memory, CTAs per SM);
+   launch plan (ring or wide route, anchors per tile, ring stages, shared
+   memory, CTAs per SM) at nc 80, 3 and 1,203;
 3. the one-launch ``select_scales`` against ``select_scales_plain`` on the
    card, at the serving scales (batch 32; HW 6400 / 1600 / 400) and at ragged
    and misaligned ones (HW 400 / 49 / 25); nc 80 and 3; f32 and bf16; split
@@ -47,6 +48,15 @@ that fails, and without a card. Phases, each printing one line:
    apart. Each time stands beside its bound (bytes over the memory rate
    against operations over the f32 rate of the card that ``nvidia-smi``
    names);
+   b. LVIS v1's class count: yolo-ms-xs with nc = 1,203, bs 32, 640²,
+      seeded weights, BN-folded, conf 1e-5, through
+      ``Predictor(entry_layouts="auto")`` in bf16 (its tiles fit a ring:
+      bulk rows and elements) and then in f32 with TF32 off (they do not:
+      ``select``'s wide route), 4 batches checked and 4 timed each: every
+      launch equal to the plain version on the maps it served, its routes
+      those of ``expected_routes``; the kernel tail equal to the plain
+      tail; ms per batch and ``select``'s time (L2 flushed by a write)
+      beside its bound and the plain version's;
 6. training on the card:
    a. one f32 train step (TF32 off) of the golden yolov8-n weights with
       SGD-nesterov, weight decay, clipping and EMA, on the card and on the
@@ -92,7 +102,12 @@ that fails, and without a card. Phases, each printing one line:
       final params, statistics and EMA must equal the uninterrupted run's
       (rtol 1e-3 / atol 1e-5); the seconds from signal to exit;
    e. ``tools.analyze`` of yolo-ms-xs at 640² on the card: params and
-      ``FlopCounterMode`` GFLOPs per image.
+      ``FlopCounterMode`` GFLOPs per image;
+   f. ``Predictor(deploy=False)`` (BatchNorm unfolded, eval mode) in both
+      entry layouts, f32 with TF32 off: both trained goldens reproduce
+      their detections (phase 4's rule); 6c's checkpoint gives raw maps
+      within 1e-3 of the folded model's (7b's rule) and serves its 64 val
+      images; one ``select`` launch per served batch.
 8. data-parallel training, each rank a child process (this script with
    ``--dp-child``) started with torchrun's variables, so the port's own
    ``maybe_initialize_distributed`` runs; two ranks share the one card over
@@ -144,7 +159,11 @@ that fails, and without a card. Phases, each printing one line:
       module (nor JAX), and its detections must match the golden ones;
    d. ``predict_paths`` over 6c's 384 training images (640x480) at bs=32
       640² bf16, sequential and pipelined in turns: equal results,
-      byte-equal files, one launch per batch; img/s of each.
+      byte-equal files, one launch per batch; img/s of each;
+   e. the flagship exported at ``entry_layouts="default"`` (the NCHW
+      program) against ``Predictor(entry_layouts="default").infer`` on
+      phase 5's 8 batches by 9b's rules, one ``select`` launch per call on
+      the TMA route; ms/batch beside the auto program's.
 
 10. hybrid data x spatial training and height-sharded serving, in gloo
     ranks on the one card (this script with ``--dp-child 10``): first 2
@@ -188,7 +207,15 @@ that fails, and without a card. Phases, each printing one line:
     d. ``run_streaming`` of yolo-ms-xs over the 2,048-JPEG fixture, 8 decode
        threads, depth 8: every leg, the native loader's presence, the
        ``bound`` verdict and the derived cores per card; ``select.launches``
-       equal to the calls made, every batch served by the sustained leg.
+       equal to the calls made, every batch served by the sustained leg;
+    e. the ``native/`` loader: where g++ compiles ``jpeglib.h`` and
+       ``png.h``, ``native/build.sh`` builds it into the ignored
+       ``yolo_ms_tpu_torch/build/`` (a failed build fails the run) and
+       ``tools/benchmark.py --mode streaming --images DIR`` runs over 11d's
+       fixture with it and then with cv2: each leg of both runs, one launch
+       per call; the first batch and both goldens' fixtures decoded by each
+       give the same detections (phase 4's rule). Where the tools are
+       absent it prints so.
 
 The last three lines are the kernel JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -210,9 +237,11 @@ runs, phase 8b's data-parallel validation (``train_dp_validate``, both
 ranks' launches), phase 9's program calls (``program``) and
 ``predict_paths`` runs (``predict_paths``), phase 10's validation on
 the (2, 2) mesh (``train_spatial_validate``) and height-sharded serving
-(``serve_height_sharded``), every rank's launches, and phase 11's e2e
-benchmark runs (``benchmark_e2e``) and streaming run
-(``benchmark_streaming``).
+(``serve_height_sharded``), every rank's launches, phase 11's e2e
+benchmark runs (``benchmark_e2e``) and streaming runs
+(``benchmark_streaming``; ``streaming_images``, 11e's two), phase 5b's
+LVIS-width serving (``serve_wide``), 7f's unfolded serving
+(``serve_unfolded``) and 9e's NCHW program (``program_nchw``).
 """
 
 from __future__ import annotations
@@ -222,10 +251,12 @@ import contextlib
 import copy
 import glob
 import importlib.util
+import io
 import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -239,7 +270,7 @@ import torch
 
 from yolo_ms_tpu_torch.data import native_loader
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
-from yolo_ms_tpu_torch.data.decode import decode_and_resize
+from yolo_ms_tpu_torch.data.decode import decode_and_resize, decode_image
 from yolo_ms_tpu_torch.infer.layouts import ENTRY_LAYOUTS, memory_format_name, not_channels_last
 from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.infer.program import load_program
@@ -852,17 +883,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
             raise AssertionError(f"{arch}: auto's head maps are not contiguous NHWC")
 
         # the kernel tail against the plain tail, on the same f32 maps (auto's)
-        maps32 = [(b.float(), c.float()) for b, c in maps["auto"]]
-        got = fused_postprocess(maps32, NC, **kw)
-        want = fused_postprocess(maps32, NC, use_kernel=False, **kw)
-        v = want["valid"]
-        if not (torch.equal(got["valid"], v) and torch.equal(got["classes"][v], want["classes"][v])):
-            raise AssertionError(f"{arch}: kernel tail and plain tail disagree on valid/classes")
-        if not torch.allclose(got["scores"][v], want["scores"][v], rtol=1e-5, atol=0.0):
-            raise AssertionError(f"{arch}: kernel tail scores differ")
-        if not torch.allclose(got["boxes"][v], want["boxes"][v], rtol=0.0, atol=1e-3):
-            raise AssertionError(f"{arch}: kernel tail boxes differ")
-        tail_err = (got["boxes"][v] - want["boxes"][v]).abs().max().item()
+        tail_err = check_tail(maps["auto"], NC, arch)
 
         # where the batch time goes (device time, CUDA events), each layout
         # in turns: auto, default, default, auto
@@ -933,6 +954,105 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     }
 
 
+def check_tail(maps, nc: int, label: str) -> float:
+    """The kernel tail against the plain tail on the same maps taken to f32
+    (phase 5's settings): ``valid`` and ``classes`` equal, scores within
+    rtol 1e-5, boxes within 1e-3 px; returns the worst box error."""
+    kw = dict(conf_thresh=1e-5, pre_nms_topk=1024, max_det=300)
+    maps32 = [(b.float(), c.float()) for b, c in maps]
+    got = fused_postprocess(maps32, nc, **kw)
+    want = fused_postprocess(maps32, nc, use_kernel=False, **kw)
+    v = want["valid"]
+    if not (torch.equal(got["valid"], v) and torch.equal(got["classes"][v], want["classes"][v])):
+        raise AssertionError(f"{label}: kernel tail and plain tail disagree on valid/classes")
+    if not torch.allclose(got["scores"][v], want["scores"][v], rtol=1e-5, atol=0.0):
+        raise AssertionError(f"{label}: kernel tail scores differ")
+    if not torch.allclose(got["boxes"][v], want["boxes"][v], rtol=0.0, atol=1e-3):
+        raise AssertionError(f"{label}: kernel tail boxes differ")
+    return (got["boxes"][v] - want["boxes"][v]).abs().max().item()
+
+
+# 5b: LVIS v1's class count at the flagship's full width. In f32 its tiles
+# fit no ring of shared memory (select's wide route); in bf16 they do.
+WIDE_NC = 1203
+WIDE_BATCHES = 4  # of phase 5's batches, per pass and dtype
+
+
+def serve_wide(flush: torch.Tensor, name: str) -> dict:
+    """5b: yolo-ms-xs with LVIS v1's 1,203 classes, bs 32, 640², seeded
+    weights, BN-folded, conf 1e-5, through ``Predictor(entry_layouts=
+    "auto")`` in bf16 and then in f32 (TF32 off), each a counted run of two
+    passes over WIDE_BATCHES batches: the first holds every ``select``
+    launch against ``select_scales_plain`` on the maps it served and its
+    routes against ``expected_routes``; the second is timed. Then the
+    kernel tail against the plain tail, and ``select`` on one batch's maps
+    with L2 flushed by a write beside its bound and the plain version; one
+    line per dtype."""
+    state_dict = seeded_state_dict("yolo-ms-xs", WIDE_NC, seed=1)
+    batches = serve_batches()[:WIDE_BATCHES]
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        label = f"5b {str(dtype)[6:]}"
+        predictor = Predictor("yolo-ms-xs", state_dict, num_classes=WIDE_NC,
+                              input_size=(IMG, IMG), conf_thresh=1e-5, batch_size=BATCH,
+                              dtype=dtype, entry_layouts="auto", device="cuda")
+        predictor.predict_batch(batches[0])  # warm-up
+        spy = SelectSpy()
+        spy.layout = label
+        host_ms = []
+        select.launches = 0
+        for checked in (True, False):
+            with spy.on() if checked else contextlib.nullcontext():
+                for imgs in batches:
+                    n = select.launches
+                    t0 = time.perf_counter()
+                    out = predictor.predict_batch(imgs)
+                    if not checked:
+                        host_ms.append((time.perf_counter() - t0) * 1e3)
+                    if select.launches != n + 1:
+                        raise AssertionError(f"{label}: {select.launches - n} select launches "
+                                             f"in one batch")
+                    check_outputs(out, label, WIDE_NC)
+        launches = select.launches
+        if launches != 2 * WIDE_BATCHES:
+            raise AssertionError(f"{label}: select launched {launches} times in "
+                                 f"{2 * WIDE_BATCHES} batches")
+        x_u8 = torch.from_numpy(batches[0]).cuda()
+        precision = full_f32() if dtype == torch.float32 else contextlib.nullcontext()
+        with torch.inference_mode():
+            with precision:
+                raw = predictor.model(predictor.serve.network_input(x_u8), split_head=True)
+            maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
+            tail_err = check_tail(maps, WIDE_NC, label)
+            pairs = [(b.flatten(1, 2), c.flatten(1, 2)) for b, c in maps]
+            err, routes, _ = compare_select(pairs, dtype, f"{label} maps")
+            bytes_ms, ops_ms = select_bound(pairs, name)
+            runs[str(dtype)[6:]] = {
+                "host_ms": statistics.median(host_ms), "launches": launches,
+                "checked_routes": sorted({_route_names(r) for r, _ in spy.calls[label]}),
+                "checked_err": max(e for _, e in spy.calls[label]), "tail_err": tail_err,
+                "err": err, "routes": routes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                "ms": cuda_ms(lambda: select_scales(pairs, REG_MAX), 20, flush, cover=True),
+                "plain_ms": cuda_ms(lambda: select_scales_plain(pairs, REG_MAX), 5, flush,
+                                    cover=True),
+            }
+        del predictor, raw, maps, pairs
+    for dt, w in runs.items():
+        bound_ms, bound_by = bound_of(w["bytes_ms"], w["ops_ms"])
+        print(f"phase 5b serve yolo-ms-xs nc={WIDE_NC} (LVIS v1) bs={BATCH} {IMG}px {dt}"
+              f"{' (TF32 off)' if dt == 'float32' else ''} entry_layouts=auto: "
+              f"{w['host_ms']:.3f} ms/batch predict_batch (host clock, median of "
+              f"{WIDE_BATCHES}), {BATCH / w['host_ms'] * 1e3:.1f} img/s; select launches "
+              f"{w['launches']} in {2 * WIDE_BATCHES} batches, each equal to the plain version "
+              f"(worst ltrb err {w['checked_err']:.3e}), routes {', '.join(w['checked_routes'])}; "
+              f"kernel-vs-plain tail box err {w['tail_err']:.3e}; select on one batch's maps "
+              f"{w['ms'] * 1e3:.1f} us with L2 flushed by a write (bound {bound_ms * 1e3:.1f} us "
+              f"by {bound_by}, {bound_ms / w['ms'] * 100:.0f} % of it; routes "
+              f"{_route_names(w['routes'])}), plain {w['plain_ms'] * 1e3:.1f} us")
+    return {"launches": sum(r["launches"] for r in runs.values()),
+            "err": max(max(r["err"], r["checked_err"]) for r in runs.values())}
+
+
 def _ms_pair(values) -> str:
     return " / ".join(f"{v:.3f}" for v in values)
 
@@ -1000,7 +1120,7 @@ def print_serving(r: dict) -> None:
     )
 
 
-def check_outputs(out: dict, arch: str) -> None:
+def check_outputs(out: dict, arch: str, nc: int = NC) -> None:
     shapes = {"boxes": (BATCH, 300, 4), "scores": (BATCH, 300),
               "classes": (BATCH, 300), "valid": (BATCH, 300)}
     for key, shape in shapes.items():
@@ -1012,7 +1132,7 @@ def check_outputs(out: dict, arch: str) -> None:
         raise AssertionError(f"{arch}: no detections at conf 1e-5")
     s = out["scores"][out["valid"]]
     c = out["classes"][out["valid"]]
-    if not ((s > 0).all() and (s <= 1).all() and (c >= 0).all() and (c < NC).all()):
+    if not ((s > 0).all() and (s <= 1).all() and (c >= 0).all() and (c < nc).all()):
         raise AssertionError(f"{arch}: scores or classes out of range")
 
 
@@ -1565,6 +1685,84 @@ def phase_video(work: str, full: dict, export_path: str) -> int:
           f"select launches {launches}; {n_dets} detections, every frame matches predict_image "
           f"on the decoded frame ({exact} of {len(frames)} exactly equal); written video "
           f"{written} frames")
+    return launches
+
+
+def phase_unfolded(full: dict) -> int:
+    """7f: ``Predictor(deploy=False)``, BatchNorm unfolded in eval mode, in
+    both entry layouts: both trained goldens (train-structure weights.npz,
+    160², f32, TF32 off, conf 0.25) reproduce their checked-in detections
+    by phase 4's rule; 6c's checkpoint (its EMA model) served unfolded in
+    f32 gives raw maps within EXPORT_MAPS_ATOL of the folded model's (7b's
+    rule) and serves 6c's 64 val images at conf 1e-5. A counted run: one
+    ``select`` launch per served batch."""
+    launches, parts = 0, []
+    for arch, gdir in GOLDENS:
+        state_dict = load_npz(os.path.join(gdir, "weights.npz"))
+        fixture = os.path.join(gdir, "fixture_000.png")
+        with open(os.path.join(gdir, "fixture_000_detections.json")) as f:
+            golden = json.load(f)
+        for layout in ENTRY_LAYOUTS:
+            predictor = Predictor(arch, state_dict, num_classes=3, input_size=(160, 160),
+                                  conf_thresh=0.25, iou_thresh=0.45, dtype=torch.float32,
+                                  deploy=False, entry_layouts=layout, device=DEVICE)
+            if predictor.deploy or predictor.serve.memory_format != LAYOUT_FORMATS[layout]:
+                raise AssertionError(f"7f {arch} {layout}: deploy {predictor.deploy}, "
+                                     f"{predictor.serve.memory_format}")
+            select.launches = 0
+            with tempfile.TemporaryDirectory() as out_dir:
+                results = predictor.predict_paths(fixture, out_dir, verbose=False)
+            if select.launches != 1:
+                raise AssertionError(f"7f {arch} {layout}: {select.launches} select launches "
+                                     f"for 1 batch")
+            launches += 1
+            got = next(iter(results.values()))
+            match_golden(got, golden)
+            parts.append(f"golden {arch} {layout}: {len(got)} detections match "
+                         f"(scores {[d['score'] for d in got]})")
+
+    ema = restore_checkpoint(full["ckpt"])["state"]["ema"]
+    _, _, _, val_images, _ = full["data"]
+    paths = sorted(glob.glob(os.path.join(val_images, "*.jpg")))
+    u8 = np.stack([decode_and_resize(p, IMG, IMG) for p in paths])
+    kw = dict(num_classes=NC, input_size=(IMG, IMG), conf_thresh=1e-5, batch_size=BATCH,
+              dtype=torch.float32, device=DEVICE)
+    x = torch.from_numpy(u8[:BATCH]).to(DEVICE)
+
+    def raw_maps(predictor):
+        with torch.inference_mode(), full_f32():
+            return predictor.model(predictor.serve.network_input(x))
+
+    folded = Predictor("yolo-ms-xs", ema, deploy=True, entry_layouts="default", **kw)
+    want = raw_maps(folded)
+    del folded
+    for layout in ENTRY_LAYOUTS:
+        predictor = Predictor("yolo-ms-xs", ema, deploy=False, entry_layouts=layout, **kw)
+        if predictor.deploy:
+            raise AssertionError(f"7f 6c {layout}: the checkpoint was folded")
+        maps_err = max((a - b).abs().max().item() for a, b in zip(raw_maps(predictor), want))
+        if not maps_err <= EXPORT_MAPS_ATOL:
+            raise AssertionError(f"7f 6c {layout}: unfolded raw maps differ from the folded "
+                                 f"model's by {maps_err}")
+        select.launches = 0
+        t0 = time.perf_counter()
+        n_dets = 0
+        for i in range(0, len(u8), BATCH):
+            out = predictor.predict_batch(u8[i:i + BATCH])
+            check_outputs(out, f"7f 6c {layout}")
+            n_dets += int(out["valid"].sum())
+        serve_s = time.perf_counter() - t0
+        batches = math.ceil(len(u8) / BATCH)
+        if select.launches != batches:
+            raise AssertionError(f"7f 6c {layout}: {select.launches} select launches for "
+                                 f"{batches} batches")
+        launches += batches
+        parts.append(f"6c's EMA model {layout}: raw maps vs folded max abs err {maps_err:.3e}, "
+                     f"{len(u8)} val images in {serve_s:.2f} s, {n_dets} detections, select "
+                     f"launches {batches}")
+        del predictor
+    print(f"phase 7f Predictor(deploy=False) (BatchNorm unfolded, eval) f32 with TF32 off, "
+          f"both entry layouts: " + "; ".join(parts))
     return launches
 
 
@@ -2531,7 +2729,63 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
           f"{' / '.join(f'{r:.1f}' for r in rates['pipelined'])} img/s (host clock around "
           f"each call, in turns); select launches {pp_launches} in 4 runs; results equal "
           f"({n_dets} detections), {len(names)} files byte-equal")
-    return {"program": launches, "predict_paths": pp_launches}
+
+    return {"program": launches, "predict_paths": pp_launches,
+            "program_nchw": phase_program_default(root, folded, flagship, med)}
+
+
+def phase_program_default(root: str, folded: str, flagship: dict, auto_ms: float) -> int:
+    """9e: the flagship's folded checkpoint (9a's) exported with
+    ``entry_layouts="default"``, the NCHW program, read back and held
+    against ``Predictor(entry_layouts="default").infer`` on phase 5's
+    batches by 9b's rules; a counted run: one ``select`` launch per call,
+    each on the TMA route. Returns the launches."""
+    log = os.path.join(root, "export.log")
+    batches = serve_batches()
+    prog_nchw = os.path.join(root, "flagship_nchw.pt2")
+    t0 = time.perf_counter()
+    with _quiet(log):
+        info = tools_export.export_program(
+            load_serving_state_dict(folded), "yolo-ms-xs", NC, prog_nchw, batch=BATCH,
+            img_size=(IMG, IMG), conf_thresh=1e-5, entry_layouts="default")
+    nchw_export_s = time.perf_counter() - t0
+    if info["memory_format"] != "contiguous_format":
+        raise AssertionError(f"9e: the NCHW program runs in {info['memory_format']}")
+    nchw = load_program(prog_nchw)
+
+    def serve_nchw(imgs):
+        with torch.inference_mode():
+            out = nchw(torch.from_numpy(imgs).to("cuda"))
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    reference = Predictor("yolo-ms-xs", flagship["state_dict"], num_classes=NC,
+                          input_size=(IMG, IMG), conf_thresh=1e-5, batch_size=BATCH,
+                          dtype=torch.bfloat16, entry_layouts="default", device="cuda")
+    serve_nchw(batches[0])  # warm-up
+    select.launches = 0
+    nchw_ms, outs = [], []
+    for imgs in batches:
+        n = select.launches
+        t0 = time.perf_counter()
+        outs.append(serve_nchw(imgs))
+        nchw_ms.append((time.perf_counter() - t0) * 1e3)
+        if select.launches != n + 1 or select_scales.last_routes != [("tma", "tma")] * 3:
+            raise AssertionError(f"9e: {select.launches - n} select launches, routes "
+                                 f"{select_scales.last_routes}")
+    nchw_launches = select.launches
+    box_err = score_err = 0.0
+    for k, (imgs, got) in enumerate(zip(batches, outs)):
+        check_outputs(got, "9e program")
+        errs = _same_detections(got, reference.predict_batch(imgs), f"9e batch {k}")
+        box_err, score_err = max(box_err, errs[0]), max(score_err, errs[1])
+    print(f"phase 9e program entry_layouts=default (contiguous NCHW) yolo-ms-xs bs={BATCH} "
+          f"{IMG}px bf16 conf 1e-5: exported in {nchw_export_s:.2f} s, "
+          f"{os.path.getsize(prog_nchw) / 1e6:.1f} MB; {statistics.median(nchw_ms):.3f} ms/batch "
+          f"(host clock, median of {SERVE_BATCHES}) beside the auto program's {auto_ms:.3f}; "
+          f"select launches {nchw_launches} in {SERVE_BATCHES} calls, each on the TMA route; "
+          f"against Predictor(entry_layouts=\"default\").infer: valid and classes equal, boxes "
+          f"max abs err {box_err:.3e} px, scores max rel err {score_err:.3e}")
+    return nchw_launches
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3075,6 +3329,163 @@ def phase_benchmark(runs: list, full: dict) -> dict:
     return {"benchmark_e2e": e2e_launches, "benchmark_streaming": calls}
 
 
+# 11e: the probe for what native/build.sh needs, and where it builds
+NATIVE_PROBE = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\nint main() { return 0; }\n"
+NATIVE_BUILD = select_mod.BUILD_DIR
+
+
+def _native_toolchain() -> str | None:
+    """None where g++ compiles a file that includes jpeglib.h and png.h;
+    else what is missing."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return "no g++ on the PATH"
+    proc = subprocess.run([gxx, "-fsyntax-only", "-x", "c++", "-"], input=NATIVE_PROBE,
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        return f"g++ cannot compile jpeglib.h and png.h: {proc.stderr.strip()[-300:]}"
+    return None
+
+
+@contextlib.contextmanager
+def _decoder(native: bool):
+    """The native loader on (its library found again, after a build) or
+    off (cv2), as ``native_loader.available()`` answers every caller."""
+    saved = native_loader._LIB, native_loader._TRIED
+    native_loader._LIB, native_loader._TRIED = None, not native
+    try:
+        if native_loader.available() != native:
+            raise AssertionError(f"11e: the native loader is {'not ' * native}available")
+        yield
+    finally:
+        native_loader._LIB, native_loader._TRIED = saved
+
+
+def _detections(out: dict, i: int, size: tuple | None = None) -> list:
+    """Image ``i``'s valid detections of a ``predict_batch`` output; with
+    ``size`` (its original height and width) the boxes are scaled from the
+    goldens' 160² input to it and clipped, as the golden files hold them."""
+    v = out["valid"][i]
+    dets = []
+    for c, s, box in zip(out["classes"][i][v], out["scores"][i][v], out["boxes"][i][v]):
+        box = [float(b) for b in box]
+        if size is not None:
+            oh, ow = size
+            box = [min(max(b * lim / 160, 0.0), lim) for b, lim in zip(box, (ow, oh, ow, oh))]
+        dets.append({"class_id": int(c), "score": float(s), "box_xyxy": box})
+    return dets
+
+
+def phase_native_streaming() -> dict:
+    """11e: the ``native/`` loader and ``tools/benchmark.py --mode streaming
+    --images DIR`` over 11d's 2,048-JPEG fixture. Probes for g++ with the
+    libjpeg and libpng headers; where they are present, builds
+    ``native/loader.cpp`` with ``native/build.sh`` into the port's ignored
+    ``build/`` directory (a failed build fails the run) and runs the CLI
+    with the native loader and then with cv2, else (printed on a line of
+    its own; nothing is fetched) with cv2 alone: each run serves every
+    batch (one ``select`` launch per call) and reports the decoder it used.
+    With both: the first batch decoded by each, served as the streaming run
+    serves it (seed-0 weights, conf 0.25), and both trained goldens'
+    fixtures decoded and resized by each (160², f32, TF32 off, conf 0.25)
+    must give the same detections by phase 4's rule (same count and class,
+    IoU > 0.9, score within 0.02), the goldens also their checked-in
+    ones."""
+    missing = _native_toolchain()
+    if missing is None:
+        os.makedirs(NATIVE_BUILD, exist_ok=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(["sh", os.path.join(ROOT, "native", "build.sh"), NATIVE_BUILD],
+                              capture_output=True, text=True, timeout=300)
+        build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"11e: native/build.sh failed ({proc.returncode}):\n"
+                                 f"{proc.stderr}")
+        with _decoder(True):
+            lib = native_loader._LIB._name
+    else:
+        print(f"phase 11e native loader: not built on this machine, {missing}; nothing "
+              f"fetched, the streaming run decodes with cv2")
+    images = os.path.join(tempfile.gettempdir(), "yolo_ms_stream_fixture")
+    argv = ["--arch", "yolo-ms-xs", "--batch", str(BATCH), "--img_size", str(IMG),
+            "--mode", "streaming", "--images", images, "--threads", str(BENCH_THREADS),
+            "--device", "cuda"]
+    reports, launches = {}, 0
+    for native in (True, False) if missing is None else (False,):
+        with _decoder(native):
+            select.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                benchmark.main(argv)
+            r = json.loads(buf.getvalue().strip().splitlines()[-1])
+        calls = 2 + 2 * (r["n_images"] // BATCH)
+        if r["native_loader"] != native or select.launches != calls:
+            raise AssertionError(f"11e native={native}: native_loader {r['native_loader']}, "
+                                 f"select launched {select.launches} times in {calls} calls")
+        reports["native" if native else "cv2"] = r
+        launches += calls
+
+    def legs(r):
+        return (f"decode {r['host_decode_img_per_s']} img/s at "
+                f"{r['host_decode_cpu_s_per_img']} CPU-s/img, sustained "
+                f"{r['sustained_img_per_s']} img/s, device {r['device_only_img_per_s']} img/s, "
+                f"bound {r['bound']}, cores_per_chip_derived {r['cores_per_chip_derived']}")
+
+    ran = (f"tools/benchmark.py --mode streaming --images {images} "
+           f"({reports['cv2']['n_images']} JPEGs, bs={BATCH} {IMG}px bf16, {BENCH_THREADS} "
+           f"threads)")
+    if missing is not None:
+        print(f"phase 11e {ran} with cv2: {legs(reports['cv2'])}; select launches {launches} "
+              f"in {launches} calls, every batch served; {json.dumps(reports)}")
+        return {"streaming_images": launches}
+
+    # the same detections from either decoder
+    exts = (".jpg", ".jpeg", ".png", ".bmp")
+    first = sorted(os.path.join(images, f) for f in os.listdir(images)
+                   if f.lower().endswith(exts))[:BATCH]
+    decoded = {}
+    for native in (True, False):
+        with _decoder(native):
+            decoded[native] = {
+                "first": np.stack([decode_and_resize(p, IMG, IMG) for p in first]),
+                **{arch: decode_and_resize(os.path.join(gdir, "fixture_000.png"), 160, 160)
+                   for arch, gdir in GOLDENS}}
+    diff = np.abs(decoded[True]["first"].astype(np.int16) - decoded[False]["first"])
+    stream = benchmark._predictor(benchmark._seed_model("yolo-ms-xs", NC), "yolo-ms-xs", BATCH,
+                                  IMG, NC, torch.device("cuda"), "auto")
+    outs = {native: stream.predict_batch(decoded[native]["first"]) for native in (True, False)}
+    n_first = 0
+    for i in range(BATCH):
+        got = _detections(outs[True], i)
+        match_golden(got, _detections(outs[False], i))
+        n_first += len(got)
+    golden_parts = []
+    for arch, gdir in GOLDENS:
+        with open(os.path.join(gdir, "fixture_000_detections.json")) as f:
+            golden = json.load(f)
+        size = decode_image(os.path.join(gdir, "fixture_000.png")).shape[:2]
+        predictor = Predictor(arch, load_npz(os.path.join(gdir, "weights.npz")), num_classes=3,
+                              input_size=(160, 160), conf_thresh=0.25, iou_thresh=0.45,
+                              dtype=torch.float32, device="cuda")
+        dets = {native: _detections(predictor.predict_batch(decoded[native][arch][None]), 0,
+                                    size) for native in (True, False)}
+        match_golden(dets[True], dets[False])
+        match_golden(dets[True], golden)
+        match_golden(dets[False], golden)
+        golden_parts.append(f"{arch} {len(dets[True])} (scores native "
+                            f"{[round(d['score'], 4) for d in dets[True]]}, cv2 "
+                            f"{[round(d['score'], 4) for d in dets[False]]})")
+    print(f"phase 11e native loader built by native/build.sh in {build_s:.2f} s ({lib}); "
+          f"{ran}, in turns: native: "
+          f"{legs(reports['native'])}; cv2: {legs(reports['cv2'])}; select launches {launches} "
+          f"in {launches} calls, every batch served; first batch native vs cv2 pixels max diff "
+          f"{int(diff.max())}, {float((diff > 0).mean()) * 100:.2f} % differ, served at conf "
+          f"0.25: {n_first} detections each, the same; goldens decoded and resized by each, "
+          f"detections the same and the checked-in ones: {'; '.join(golden_parts)}; "
+          f"{json.dumps(reports)}")
+    return {"streaming_images": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
@@ -3100,9 +3511,10 @@ def main() -> int:
     info = select_mod.build()
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
     plans = "; ".join(
-        "{} nc={}: {tile} anchors per tile, {stages} stages, {smem_bytes} B shared per CTA, "
-        "{ctas_per_sm} CTAs per SM on {sms} SMs".format(str(dt)[6:], nc, **select_mod.plan(dt, nc))
-        for dt in (torch.bfloat16, torch.float32) for nc in (NC, 3)
+        "{} nc={}: {route}, {tile} anchors per tile, {stages} stages, {smem_bytes} B shared per "
+        "CTA, {ctas_per_sm} CTAs per SM on {sms} SMs".format(str(dt)[6:], nc,
+                                                             **select_mod.plan(dt, nc))
+        for dt in (torch.bfloat16, torch.float32) for nc in (NC, 3, WIDE_NC)
     )
     print(f"phase 2 build select.cu: {info['seconds']:.2f} s; {'; '.join(regs)}; plan: {plans}")
 
@@ -3122,6 +3534,7 @@ def main() -> int:
     runs = [serve_model(arch, flush) for arch in SERVE_ARCHS]
     for r in runs:
         print_serving(r)
+    wide = serve_wide(flush, name)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         phase_step_parity()
@@ -3131,6 +3544,7 @@ def main() -> int:
         export_val = phase_export_val(work, full)
         tools["tools_val"] = export_val["launches"]
         tools["video"] = phase_video(work, full, export_val["bf16"])
+        tools["serve_unfolded"] = phase_unfolded(full)
         phase_preempt(work)
         phase_analyze(work)
         phase_dp_equality(work)
@@ -3141,12 +3555,14 @@ def main() -> int:
         tools.update(phase_program(work, runs[0], full))
         tools.update(phase_spatial(work, full, dp))
     tools.update(phase_benchmark(runs, full))
+    tools.update(phase_native_streaming())
 
     # one batch of the flagship, one launch
     sel = runs[0]["select"]
     bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
-    worst = max([worst] + [r["select"]["err"] for r in runs])
+    worst = max([worst, wide["err"]] + [r["select"]["err"] for r in runs])
     serve_launches = sum(r["launches"] for r in runs)
+    tools["serve_wide"] = wide["launches"]
     kernels = [{
         "name": "select",
         "route": "cuda",

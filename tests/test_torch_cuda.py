@@ -16,6 +16,8 @@ import torch
 
 from yolo_ms_tpu_torch.ops.kernels.select import (
     expected_routes,
+    plan,
+    plan_fits,
     select,
     select_plain,
     select_scales,
@@ -166,6 +168,83 @@ def test_kernel_ties_and_extremes(card):
             assert abs(ltrb[0, a, 0].item() - 3.0) < 1e-4
             assert abs(ltrb[0, a, 1].item() - 7.5) < 1e-4  # trails by 100: clamped flat
         assert torch.isfinite(ltrb).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+@pytest.mark.parametrize("nc,dtype", [(827, torch.float32), (900, torch.float32),
+                                      (1203, torch.float32), (1732, torch.bfloat16)])
+def test_wide_route_matches_plain(card, nc, dtype, layout):
+    """Class counts whose tiles fit no ring of shared memory (f32 past 826,
+    bf16 past 1,730 at reg_max 16; LVIS's 1,203 in f32) take the wide route
+    on every map, at ragged scales (HW 400 is not a multiple of its
+    256-anchor tile; 49 and 25), one launch for all scales."""
+    pairs = [_views(card, 2, s, s, nc, dtype, layout) for s in (20, 7, 5)]
+    assert not plan_fits(dtype, nc, REG_MAX)
+    before = select.launches
+    got = select_scales(pairs, REG_MAX)
+    assert select.launches == before + 1
+    assert select_scales.last_routes == expected_routes(pairs, REG_MAX) == [("wide", "wide")] * 3
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_past_256_classes_matches_plain(card, dtype, layout):
+    """nc 300 fits a ring, but no TMA or strided bulk rows past 256
+    channels: NCHW views and unsplit class slices go element by element."""
+    pairs = [_views(card, 2, s, s, 300, dtype, layout) for s in (20, 7)]
+    got = select_scales(pairs, REG_MAX)
+    assert select_scales.last_routes == expected_routes(pairs, REG_MAX)
+    assert "wide" not in {r for pair in select_scales.last_routes for r in pair}
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+def test_wide_route_class_ids_past_16_bits(card, layout):
+    """nc 65,536, HW 16, one image, f32: anchor a's max at class 65,520 + a,
+    past the 16-bit ids of the ring's thread groups."""
+    box, cls = _views(card, 1, 4, 4, 65536, torch.float32, layout)
+    for a in range(16):
+        cls[0, a, 65520 + a] = 100.0
+    got = select(box, cls, REG_MAX)
+    assert select_scales.last_routes == [("wide", "wide")]
+    _assert_equal_to_plain(got, select_plain(box, cls, REG_MAX), torch.float32)
+    assert got[1][0].tolist() == [65520 + a for a in range(16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+@pytest.mark.parametrize("nc", [900, 901])
+def test_wide_route_ties_across_lanes(card, nc, layout):
+    """Ties on the wide route (nc 900: rows read as 16-byte vectors where
+    channels-last; 901: element by element): a row of one value gives class
+    0, and 1.0 at classes 500, 77 and 13 (other lanes of the warp, other
+    vectors) gives 13, as ``argmax`` does."""
+    box, cls = _views(card, 2, 4, 4, nc, torch.float32, layout)
+    cls.zero_()
+    cls[:, 8:, [500, 77, 13]] = 1.0
+    mx, cid, ltrb = select(box, cls, REG_MAX)
+    assert select_scales.last_routes == [("wide", "wide")]
+    _assert_equal_to_plain((mx, cid, ltrb), select_plain(box, cls, REG_MAX), torch.float32)
+    assert cid[:, :8].eq(0).all() and cid[:, 8:].eq(13).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,last", [(torch.float32, 826), (torch.bfloat16, 1730)])
+def test_plan_route_is_plan_fits(card, dtype, last):
+    """``plan`` reports a ring up to the class count where ``plan_fits``
+    (the Python rule) says so, and the wide route (256 anchors a tile, no
+    stages, no shared memory) past it; it raises for no nc >= 1."""
+    for nc in (1, 80, last, last + 1, 65536):
+        p = plan(dtype, nc, REG_MAX)
+        assert p["route"] == ("ring" if plan_fits(dtype, nc, REG_MAX) else "wide")
+        assert p["route"] == ("ring" if nc <= last else "wide")
+        if p["route"] == "wide":
+            assert (p["tile"], p["stages"], p["smem_bytes"]) == (256, 0, 0)
+        assert p["ctas_per_sm"] >= 1 and p["sms"] >= 1
 
 
 @pytest.mark.cuda

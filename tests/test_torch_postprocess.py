@@ -84,6 +84,22 @@ def test_fused_postprocess_matches_jax(split):
     assert got["classes"].dtype == torch.int32 and got["boxes"].shape == (2, 20, 4)
 
 
+def test_fused_postprocess_lvis_classes_match_jax():
+    """LVIS v1's 1,203 classes at a 64 px input (HW 64 / 16 / 4), f32: on
+    the card these maps take ``select``'s wide route. Class offsets past
+    2**23 / 8192 (about 1,024 classes) leave the offset boxes of the NMS
+    without sub-pixel bits, in both packages alike."""
+    nc = 1203
+    rng = np.random.default_rng(6)
+    maps = [(rng.standard_normal((2, s, s, NB + nc)) * 1.5).astype(np.float32)
+            for s in (8, 4, 2)]
+    kw = dict(pre_nms_topk=64, max_det=20)
+    want = jax_fused(_as_inputs(maps, True, "jax"), nc, **kw)
+    got = fused_postprocess(_as_inputs(maps, True, "torch"), nc, **kw)
+    v = _assert_same(got, want)
+    assert v.sum() > 0 and (got["classes"].numpy()[v] >= 1024).any()
+
+
 def test_fused_postprocess_reads_nchw_permute_views():
     maps = _maps(4)
     views = []

@@ -18,6 +18,7 @@ import torch
 
 from yolo_ms_tpu.data import augment as jax_augment
 from yolo_ms_tpu.data import decode as jax_decode
+from yolo_ms_tpu.infer import predictor as jax_predictor
 from yolo_ms_tpu_torch.data import augment, decode
 from yolo_ms_tpu_torch.infer import predictor as predictor_mod
 from yolo_ms_tpu_torch.infer.predictor import Predictor, draw_detections, find_images
@@ -114,6 +115,22 @@ def test_letterbox_predict_image_and_coco_export(tmp_path):
     assert len(records) == len(dets) and records[0]["image_id"] == 123
     x1, y1, x2, y2 = dets[0]["box_xyxy"]
     assert records[0]["bbox"] == [x1, y1, round(x2 - x1, 2), round(y2 - y1, 2)]
+
+
+@pytest.mark.parametrize("conf_thresh", [0.0, 0.5])
+def test_draw_detections_matches_jax(conf_thresh):
+    """The golden detections, and copies of them scored below 0.5, drawn
+    on the golden fixture: the same pixels as the JAX function, which skips
+    detections scored below ``conf_thresh``."""
+    image = decode.decode_image(os.path.join(GOLDEN, "trained", "fixture_000.png"))
+    with open(os.path.join(GOLDEN, "trained", "fixture_000_detections.json")) as f:
+        dets = json.load(f)
+    dets += [{**d, "score": d["score"] / 4, "box_xyxy": [v / 2 for v in d["box_xyxy"]]}
+             for d in dets]
+    want = jax_predictor.draw_detections(image, dets, conf_thresh=conf_thresh)
+    got = draw_detections(image, dets, conf_thresh=conf_thresh)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, draw_detections(image, dets, conf_thresh=0.9))
 
 
 def test_find_images(tmp_path):

@@ -1,6 +1,7 @@
 """The copy route rule of ``csrc/select.cu`` as ``expected_routes`` states it
 in Python, on CPU tensors: which (box, cls) route each scale's maps take on
-the card, from their strides, dtype and base alignment. ``chip_smoke.py``
+the card, from their class count, dtype, strides and base alignment, and
+``plan_fits``, the shared-memory rule past which every map takes ``wide``. ``chip_smoke.py``
 (phases 3 and 5) and ``tests/test_torch_cuda.py`` hold the kernel's
 ``select_scales.last_routes`` equal to it on the card. No JAX here.
 """
@@ -8,7 +9,7 @@ the card, from their strides, dtype and base alignment. ``chip_smoke.py``
 import pytest
 import torch
 
-from yolo_ms_tpu_torch.ops.kernels.select import expected_routes
+from yolo_ms_tpu_torch.ops.kernels.select import expected_routes, plan_fits
 
 REG_MAX = 16
 NB = 4 * REG_MAX
@@ -46,7 +47,7 @@ def _mixed(b, side, nc, dtype):
     return _nchw(b, side, nc, dtype)[0], _split(b, side, nc, dtype)[1]
 
 
-BULK, TMA, ELEMS = ("bulk_rows",) * 2, ("tma",) * 2, ("elements",) * 2
+BULK, TMA, ELEMS, WIDE = ("bulk_rows",) * 2, ("tma",) * 2, ("elements",) * 2, ("wide",) * 2
 CASES = {
     # auto's split maps at 640 px: the main path
     **{f"auto-{dt}-{s}px": (_split, 32, [s], 80, dtype, [BULK])
@@ -67,6 +68,17 @@ CASES = {
     "mixed-nchw-box": (_mixed, 4, [20], 80, BF16, [("elements", "bulk_rows")]),
     # one image: the batch stride is never stepped
     "one-image-nc3-unsplit-f32": (_unsplit, 1, [7], 4, F32, [BULK]),
+    # nc 300: no TMA and no strided bulk rows past 256 channels
+    "auto-f32-nc300": (_split, 2, [4, 2], 300, F32, [BULK] * 2),
+    "unsplit-f32-nc300": (_unsplit, 2, [4], 300, F32, [("bulk_rows", "elements")]),
+    "nchw-f32-nc300": (_nchw, 2, [4], 300, F32, [ELEMS]),
+    # the last class counts with a ring, and the first without (LVIS: 1,203)
+    "auto-f32-nc826": (_split, 2, [4], 826, F32, [("bulk_rows", "elements")]),
+    "auto-bf16-nc1730": (_split, 2, [4], 1730, BF16, [("bulk_rows", "elements")]),
+    "auto-bf16-nc1203": (_split, 2, [4, 2], 1203, BF16, [("bulk_rows", "elements")] * 2),
+    **{f"{make.__name__[1:]}-{dt}-nc{nc}-wide": (make, 2, [4, 2], nc, dtype, [WIDE] * 2)
+       for make in (_split, _unsplit, _nchw)
+       for dt, dtype, nc in (("f32", F32, 827), ("f32", F32, 1203), ("bf16", BF16, 1731))},
 }
 
 
@@ -75,3 +87,14 @@ def test_expected_routes(case):
     make, b, sides, nc, dtype, want = CASES[case]
     pairs = [make(b, s, nc, dtype) for s in sides]
     assert expected_routes(pairs, REG_MAX) == want
+
+
+@pytest.mark.parametrize("dtype,last", [(F32, 826), (BF16, 1730)])
+def test_plan_fits_thresholds(dtype, last):
+    """Two 32-anchor stages of (64 + nc) channels, each rounded up to 128
+    bytes, beside 4,416 (f32) or 2,624 (bf16) bytes of barriers and
+    partials, within 232,448 bytes: f32 fits up to nc 826 (227,840 bytes
+    of ring), bf16 up to 1,730 (229,632); other reg_max move the line."""
+    assert plan_fits(dtype, 1) and plan_fits(dtype, 80) and plan_fits(dtype, last)
+    assert not plan_fits(dtype, last + 1) and not plan_fits(dtype, 65536)
+    assert plan_fits(dtype, last + 4, reg_max=15) and not plan_fits(dtype, last - 3, reg_max=17)

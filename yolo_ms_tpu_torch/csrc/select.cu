@@ -64,6 +64,22 @@
 //   sums side g in f32 with the shift taken from all four side maxima.
 // - mx, cid and ltrb are stored straight into the concatenated [B, A] /
 //   [B, A, 4] outputs; anchors past HW are never stored.
+// - The wide route: where no ring of two stages of a 32-anchor tile fits
+//   the 227 KB of shared memory (at reg_max 16: f32 from nc = 827, bf16
+//   from nc = 1,731; LVIS's 1,203 classes in f32), the launch runs another
+//   kernel that stages nothing. Each CTA takes a tile of 256 anchors and
+//   reads them straight from device memory: on a map with class stride 1 a
+//   warp reads one anchor's class row, 16 bytes a lane where the rows are
+//   16-byte aligned and element by element otherwise, each lane keeping the
+//   max and first index of its classes in ascending order, and the warp
+//   merges them by shuffles (a tie goes to the lower index); on a map with
+//   another class stride (the NCHW view) each thread takes one anchor and
+//   loops over the classes, so that neighbouring threads read neighbouring
+//   anchors. The box sides are read by four threads an anchor with the same
+//   two-pass shift, expf and f32 sums in channel order as the other
+//   routes. Class ids are 32-bit here, so any nc >= 1 is served. Its bound
+//   is bytes too: at nc = 1,203, f32, batch 32, 640x640 the class maps are
+//   1.29 GB of the 1.37 GB read and written, about 0.41 ms at 3.35 TB/s.
 // No tensor cores: the TPU kernel's [4*reg_max, 8] contraction is pinned to
 // HIGHEST precision, which on this card would be TF32 or bf16, and the f32
 // work is a tenth of the time the bytes take at the card's f32 rate. As
@@ -92,7 +108,8 @@ constexpr int kMaxPairs = 64;            // anchor pairs of the largest tile
 constexpr int kMaxDevices = 64;
 
 // Copy routes as reported to the host. Code 1 is not used.
-enum Route : int { kTma = 0, kElems = 2, kBulk = 3 };
+enum Route : int { kTma = 0, kElems = 2, kBulk = 3, kWide = 4 };
+constexpr int kWideShift = 8;  // anchors per tile of the wide route: 256
 
 struct Map {
   CUtensorMap tma;  // kTma, and kBulk on strided rows
@@ -100,6 +117,7 @@ struct Map {
   long long sb, shw, sc;  // element strides
   int route;
   int packed;  // kBulk: rows follow each other (shw == channels), one 1-D copy a tile
+  int vec;     // kWide: class stride 1 and every row 16-byte aligned, read as vectors
 };
 
 struct Scale {
@@ -427,7 +445,7 @@ __device__ __forceinline__ void visit(const T* row, int u0, int du, int end, boo
   }
 }
 
-constexpr uint32_t kNoClass = 0xffffu;  // above every class id (nc <= 65535)
+constexpr uint32_t kNoClass = 0xffffu;  // above every class id of the ring (nc <= 1,730)
 
 // The max and its first index over the class units j, j + 4, ... of one
 // anchor-major row, by a strict `>` in ascending order. The id starts at
@@ -599,6 +617,118 @@ __global__ void __launch_bounds__(kThreads, 2) select_kernel(const __grid_consta
   }
 }
 
+// ------------------------------------------------------------ the wide route
+
+constexpr uint32_t kNoClass32 = 0xffffffffu;
+
+// One lane's max and first index over its classes of one class row (class
+// stride 1), visited in ascending order: with vec the 16-byte vectors
+// lane, lane + 32, ... and then the element of the tail past the last whole
+// vector that falls to it; else the classes lane, lane + 32, ... The first
+// class visited is always taken, so a row of -inf gives the lane's first
+// class; a lane with no class gives (-inf, kNoClass32), which loses every
+// tie.
+template <typename T>
+__device__ __forceinline__ void wide_class_lane(const T* row, int lane, int nc, bool vec,
+                                                float* best, uint32_t* id) {
+  constexpr int kVec = 16 / sizeof(T);
+  float b = __int_as_float(0xff800000);
+  uint32_t i = kNoClass32;
+  auto take = [&](int k, float x) {
+    if (x > b || i == kNoClass32) b = x, i = k;
+  };
+  if (vec) {
+    const int full = nc / kVec;
+    for (int v = lane; v < full; v += 32) {
+      float x[kVec];
+      unpack(*reinterpret_cast<const uint4*>(row + v * kVec), x);
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) take(v * kVec + q, x[q]);
+    }
+    const int tail = full * kVec + lane;  // at most kVec - 1 classes past the vectors
+    if (tail < nc) take(tail, to_f32(row[tail]));
+  } else {
+    // four loads in flight before their compares, still in ascending order
+    for (int k0 = lane; k0 < nc; k0 += 128) {
+      float x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = k0 + 32 * q < nc ? to_f32(row[k0 + 32 * q]) : 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (k0 + 32 * q < nc) take(k0 + 32 * q, x[q]);
+    }
+  }
+  *best = b;
+  *id = i;
+}
+
+// A tile of up to 256 anchors of one (scale, image), read from device
+// memory with the maps' own strides: classes by a warp an anchor (class
+// stride 1) or a thread an anchor (any other), box sides by four threads an
+// anchor (lane j side j, shift from the quad, sums in channel order).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) select_wide_kernel(const __grid_constant__ Params p) {
+  const TileAt at = locate(p, blockIdx.x);
+  const Scale& sc = p.scale[at.scale];
+  const int n = min(p.tile, sc.hw - at.a0);
+  const long long out0 = (long long)at.b * p.anchors + sc.out_off + at.a0;
+  const int lane = threadIdx.x & 31;
+
+  const Map& cm = sc.cls;
+  const T* cls = static_cast<const T*>(cm.ptr) + (long long)at.b * cm.sb + (long long)at.a0 * cm.shw;
+  if (cm.sc == 1) {
+    for (int a = threadIdx.x >> 5; a < n; a += kThreads / 32) {
+      float best;
+      uint32_t id;
+      wide_class_lane(cls + (long long)a * cm.shw, lane, p.nc, cm.vec, &best, &id);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        const uint32_t oid = __shfl_xor_sync(0xffffffffu, id, o);
+        if (ob > best || (ob == best && oid < id)) best = ob, id = oid;
+      }
+      if (lane == 0) p.mx[out0 + a] = best, p.cid[out0 + a] = (int32_t)id;
+    }
+  } else {
+    for (int a = threadIdx.x; a < n; a += kThreads) {
+      const T* col = cls + (long long)a * cm.shw;
+      float best = to_f32(col[0]);
+      uint32_t id = 0;
+      for (int k0 = 1; k0 < p.nc; k0 += 4) {
+        float x[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          x[q] = k0 + q < p.nc ? to_f32(col[(long long)(k0 + q) * cm.sc]) : 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (k0 + q < p.nc && x[q] > best) best = x[q], id = k0 + q;
+      }
+      p.mx[out0 + a] = best;
+      p.cid[out0 + a] = (int32_t)id;
+    }
+  }
+
+  const Map& bm = sc.box;
+  const T* box = static_cast<const T*>(bm.ptr) + (long long)at.b * bm.sb + (long long)at.a0 * bm.shw;
+  const int j = lane & 3;
+  for (int base = (threadIdx.x >> 5) * 8; base < n; base += kThreads / 4) {
+    const int a = base + (lane >> 2);
+    const bool live = a < n;
+    const T* side = box + (long long)(live ? a : base) * bm.shw + (long long)j * p.reg_max * bm.sc;
+    float c = __int_as_float(0xff800000);
+    for (int k = 0; k < p.reg_max; ++k) c = fmaxf(c, to_f32(side[(long long)k * bm.sc]));
+    c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 1));
+    c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 2));
+    float num = 0.f, den = 0.f, fk = 0.f;
+    for (int k = 0; k < p.reg_max; ++k, fk += 1.f) {
+      const float e = expf(fmaxf(to_f32(side[(long long)k * bm.sc]) - c, -60.f));
+      num += fk * e;
+      den += e;
+    }
+    if (live) reinterpret_cast<float*>(p.ltrb)[(out0 + a) * 4 + j] = num / den;
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -622,7 +752,9 @@ struct Plan {
 };
 
 // The largest tile (128, 64 or 32 anchors) whose ring of at least two stages
-// leaves room for two CTAs per SM; else the largest that fits one CTA.
+// leaves room for two CTAs per SM; else the largest that fits one CTA; else
+// none, and the launch takes the wide route. ops/kernels/select.py:plan_fits
+// is the same rule in Python.
 bool make_plan(int elem_bytes, int channels, Plan* plan) {
   const int extra = kBarrierBytes + (int)(elem_bytes == 4 ? sizeof(Partials<float>)
                                                           : sizeof(Partials<__nv_bfloat16>));
@@ -714,6 +846,10 @@ int pick_route(Map* m, int channels, int elem_bytes, long long hw, long long bat
 
 template <typename T>
 int launch(const Params& p, const Plan& plan, cudaStream_t stream) {
+  if (plan.stages == 0) {  // the wide route: one CTA a tile, no shared memory
+    select_wide_kernel<T><<<p.n_tiles, kThreads, 0, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
   int per_sm = 0, sms = 0;
   const cudaError_t err = fit<T>(plan, &per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
@@ -723,23 +859,42 @@ int launch(const Params& p, const Plan& plan, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The wide route's plan: tiles of 256 anchors, no ring, no shared memory.
+constexpr Plan kWidePlan = {1 << kWideShift, kWideShift, 0, 0, 0};
+
+template <typename T>
+cudaError_t fit_wide(int* per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, select_wide_kernel<T>, kThreads, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 }  // namespace
 
-// The launch plan for a dtype (0 = float32, 1 = bfloat16) and class count:
-// out = {anchors per tile, stages, dynamic shared bytes per CTA, CTAs per SM,
-// SMs}. Returns a cudaError (0 on success).
+// The launch plan for a dtype (0 = float32, 1 = bfloat16), class count and
+// reg_max: out = {anchors per tile, stages, dynamic shared bytes per CTA,
+// CTAs per SM, SMs, route} with route 0 for the ring of shared-memory stages
+// and 1 for the wide route (no stages). Returns a cudaError (0 on success).
 extern "C" int yolo_select_plan(int dtype, int nc, int reg_max, int32_t* out) {
+  if ((dtype != 0 && dtype != 1) || nc < 1 || reg_max < 1) return (int)cudaErrorInvalidValue;
   Plan plan;
-  if ((dtype != 0 && dtype != 1) || !make_plan(dtype == 0 ? 4 : 2, 4 * reg_max + nc, &plan))
-    return (int)cudaErrorInvalidValue;
+  const bool ring = make_plan(dtype == 0 ? 4 : 2, 4 * reg_max + nc, &plan);
+  if (!ring) plan = kWidePlan;
   int per_sm = 0, sms = 0;
-  const cudaError_t err = dtype == 0 ? fit<float>(plan, &per_sm, &sms)
-                                     : fit<__nv_bfloat16>(plan, &per_sm, &sms);
+  cudaError_t err;
+  if (dtype == 0)
+    err = ring ? fit<float>(plan, &per_sm, &sms) : fit_wide<float>(&per_sm, &sms);
+  else
+    err = ring ? fit<__nv_bfloat16>(plan, &per_sm, &sms) : fit_wide<__nv_bfloat16>(&per_sm, &sms);
   out[0] = plan.tile;
   out[1] = plan.stages;
   out[2] = plan.smem_bytes;
   out[3] = per_sm;
   out[4] = sms;
+  out[5] = ring ? 0 : 1;
   return (int)err;
 }
 
@@ -747,18 +902,19 @@ extern "C" int yolo_select_plan(int dtype, int nc, int reg_max, int32_t* out) {
 // pointer, box strides (batch, anchor, channel), cls pointer, cls strides,
 // HW; strides are in elements. Outputs are mx [B, A] f32, cid [B, A] i32 and
 // ltrb [B, A, 4] f32 with A the sum of the scales' HW. routes receives two
-// values per scale (box, cls): 0 TMA, 2 elements, 3 bulk rows. Returns
-// cudaGetLastError() after the launch (0 on success).
+// values per scale (box, cls): 0 TMA, 2 elements, 3 bulk rows, 4 wide (every
+// map, where the ring does not fit). Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int yolo_select_launch(int dtype, int n_scales, const int64_t* desc, int64_t batch,
                                   int nc, int reg_max, void* mx, void* cid, void* ltrb,
                                   int32_t* routes, void* stream) {
-  // class ids travel as 16 bits per anchor between the thread groups
   if ((dtype != 0 && dtype != 1) || n_scales < 1 || n_scales > kMaxScales || batch < 1 ||
-      nc < 1 || nc > 65535 || reg_max < 1)
+      nc < 1 || reg_max < 1)
     return (int)cudaErrorInvalidValue;
   const int elem_bytes = dtype == 0 ? 4 : 2;
   Plan plan;
-  if (!make_plan(elem_bytes, 4 * reg_max + nc, &plan)) return (int)cudaErrorInvalidValue;
+  const bool ring = make_plan(elem_bytes, 4 * reg_max + nc, &plan);
+  if (!ring) plan = kWidePlan;
   const CUtensorMapDataType tdt =
       dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
@@ -777,11 +933,18 @@ extern "C" int yolo_select_launch(int dtype, int n_scales, const int64_t* desc, 
     sc.out_off = anchors;
     sc.tiles_per_image = (int)((hw + plan.tile - 1) / plan.tile);
     sc.first_tile = (int)tiles;
-    sc.box.route = pick_route(&sc.box, 4 * reg_max, elem_bytes, hw, batch, plan.tile, tdt);
-    sc.cls.route = pick_route(&sc.cls, nc, elem_bytes, hw, batch, plan.tile, tdt);
-    // a tile is channel-major (both maps by TMA) or anchor-major (neither)
-    if ((sc.box.route == kTma) != (sc.cls.route == kTma))
-      (sc.box.route == kTma ? sc.box : sc.cls).route = kElems;
+    if (ring) {
+      sc.box.route = pick_route(&sc.box, 4 * reg_max, elem_bytes, hw, batch, plan.tile, tdt);
+      sc.cls.route = pick_route(&sc.cls, nc, elem_bytes, hw, batch, plan.tile, tdt);
+      // a tile is channel-major (both maps by TMA) or anchor-major (neither)
+      if ((sc.box.route == kTma) != (sc.cls.route == kTma))
+        (sc.box.route == kTma ? sc.box : sc.cls).route = kElems;
+    } else {
+      sc.box.route = sc.cls.route = kWide;
+      const uintptr_t addr = reinterpret_cast<uintptr_t>(sc.cls.ptr);
+      sc.cls.vec = sc.cls.sc == 1 && addr % 16 == 0 && (sc.cls.shw * elem_bytes) % 16 == 0 &&
+                   (batch == 1 || (sc.cls.sb * elem_bytes) % 16 == 0);
+    }
     routes[2 * s] = sc.box.route;
     routes[2 * s + 1] = sc.cls.route;
     anchors += hw;

@@ -5,8 +5,9 @@ for serving, whole batches for the eval loader); both packages share the
 one library at ``native/libyolodata.so``.
 
 Optional fast path: `available()` is False (and everything falls back to
-cv2/PIL in data/decode.py) unless native/libyolodata.so has been built via
-native/build.sh.
+cv2/PIL in data/decode.py) unless native/build.sh has built the library
+into native/ or into the port's ignored build/ directory
+(``sh native/build.sh yolo_ms_tpu_torch/build``, as chip_smoke.py does).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ _TRIED = False
 _SO_CANDIDATES = (
     os.path.join(os.path.dirname(__file__), "..", "..", "native", "libyolodata.so"),
     os.path.join(os.path.dirname(__file__), "libyolodata.so"),
+    os.path.join(os.path.dirname(__file__), "..", "build", "libyolodata.so"),
 )
 
 

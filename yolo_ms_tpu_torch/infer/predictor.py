@@ -337,12 +337,17 @@ def find_images(source_path: str) -> list[str]:
     )
 
 
-def draw_detections(image_rgb: np.ndarray, detections: list[dict]) -> np.ndarray:
-    """Green boxes + filled label tags on a copy of an RGB image."""
+def draw_detections(
+    image_rgb: np.ndarray, detections: list[dict], conf_thresh: float = 0.0
+) -> np.ndarray:
+    """Green boxes + filled label tags on a copy of an RGB image; detections
+    scored below ``conf_thresh`` are not drawn."""
     import cv2
 
     img = image_rgb.copy()
     for det in detections:
+        if det["score"] < conf_thresh:
+            continue
         x1, y1, x2, y2 = map(int, det["box_xyxy"])
         label = f"{det['class_name']}: {det['score']:.2f}"
         cv2.rectangle(img, (x1, y1), (x2, y2), (0, 255, 0), 2)

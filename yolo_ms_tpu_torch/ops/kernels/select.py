@@ -36,9 +36,19 @@ predicts it from the maps' strides, dtype and alignment:
 - ``elements``: any other map (HW 49 in NCHW, 6- or 134-byte rows, an
   unaligned base), copied element by element; also the TMA-able map of a
   scale whose other map takes no TMA.
+- ``wide``: every map of a launch whose tiles do not fit shared memory
+  (``plan_fits`` is False): no ring of stages, each anchor's rows read
+  straight from device memory (a warp an anchor's class row, or a thread
+  an anchor on NCHW views), class ids in 32 bits.
 
-The TPU kernel's limits (HW a multiple of 16, nc <= 255, the VMEM block
-budget) do not apply.
+Which class counts take which: the three routes above stage tiles of 32 to
+128 anchors in a ring of at least two stages of ``4 * reg_max + nc``
+channels within the 227 KB of shared memory one CTA may use. At reg_max 16
+that holds up to nc = 826 in f32 and nc = 1,730 in bf16 (COCO's 80 classes
+in either); above it (LVIS's 1,203 in f32, or any count up to 2**31 - 1)
+the launch takes ``wide``. Any nc >= 1 is served. The JAX TPU kernel's own
+limits (HW a multiple of 16, nc <= 255, its VMEM budget) are not this
+kernel's.
 """
 
 from __future__ import annotations
@@ -63,8 +73,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl",
 )
 MAX_SCALES = 4
-ROUTES = {0: "tma", 2: "elements", 3: "bulk_rows"}  # the kernel's copy route codes
+ROUTES = {0: "tma", 2: "elements", 3: "bulk_rows", 4: "wide"}  # the kernel's copy route codes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# make_plan's budget: the opt-in shared memory of one CTA, and what a CTA
+# holds beside its ring (four mbarriers' 64 bytes and the thread groups'
+# Partials<T>: 64 anchor pairs of class maxima, first indices and side maxima)
+_SMEM_LIMIT = 227 * 1024
+_RING_EXTRA = {torch.float32: 64 + 4352, torch.bfloat16: 64 + 2560}
 
 _lib = None
 
@@ -125,12 +140,25 @@ def _load():
 def plan(dtype: torch.dtype, nc: int, reg_max: int = 16) -> dict:
     """The kernel's launch plan on the current card for a dtype and class
     count: anchors per tile, ring stages, dynamic shared bytes per CTA,
-    CTAs per SM and SMs."""
-    out = (ctypes.c_int32 * 5)()
+    CTAs per SM, SMs and ``route``: ``"ring"`` (tiles staged in shared
+    memory) or ``"wide"`` (no stages; see ``plan_fits``)."""
+    out = (ctypes.c_int32 * 6)()
     err = _load().yolo_select_plan(_DTYPE_CODE[dtype], nc, reg_max, out)
     if err != 0:
         raise RuntimeError(f"select plan failed: cudaError {err}")
-    return dict(zip(("tile", "stages", "smem_bytes", "ctas_per_sm", "sms"), out))
+    keys = ("tile", "stages", "smem_bytes", "ctas_per_sm", "sms")
+    return {**dict(zip(keys, out)), "route": ("ring", "wide")[out[5]]}
+
+
+def plan_fits(dtype: torch.dtype, nc: int, reg_max: int = 16) -> bool:
+    """Whether ``csrc/select.cu``'s ``make_plan`` finds a ring for these
+    maps: two stages of a 32-anchor tile of ``4 * reg_max + nc`` channels
+    (each stage rounded up to 128 bytes) beside the CTA's barriers and
+    partials, within one CTA's shared memory. Where it does not, every map
+    takes the ``wide`` route."""
+    es = torch.empty((), dtype=dtype).element_size()
+    stage = -(-((4 * reg_max + nc) * 32 * es) // 128) * 128
+    return 2 * stage + _RING_EXTRA[dtype] <= _SMEM_LIMIT
 
 
 def _check(pairs: Sequence, reg_max: int) -> None:
@@ -182,13 +210,19 @@ def _map_route(t: torch.Tensor, hw: int, batch: int) -> str:
 def expected_routes(pairs: Sequence, reg_max: int = 16) -> list:
     """The (box, cls) copy routes that ``select_scales(pairs)`` takes on the
     card, one pair per scale with anchors (the rule of ``csrc/select.cu``'s
-    ``pick_route``, from the maps' strides, dtype and base alignment; see
-    the module docstring). Runs on tensors of any device."""
+    ``make_plan`` and ``pick_route``, from the class count, dtype, the maps'
+    strides and base alignment; see the module docstring). Runs on tensors
+    of any device."""
     _check(pairs, reg_max)
+    box0, cls0 = pairs[0]
+    ring = plan_fits(box0.dtype, cls0.shape[2], reg_max)
     routes = []
     for box, cls in pairs:
         batch, hw = box.shape[:2]
         if hw == 0:
+            continue
+        if not ring:
+            routes.append(("wide", "wide"))
             continue
         r_box, r_cls = _map_route(box, hw, batch), _map_route(cls, hw, batch)
         if (r_box == "tma") != (r_cls == "tma"):  # one layout per tile: anchor-major
