@@ -9,16 +9,17 @@ that fails, and without a card. Phases, each printing one line:
 2. build: compiles ``yolo_ms_tpu_torch/csrc/select.cu`` into the ignored
    ``yolo_ms_tpu_torch/build/`` directory and prints its registers and its
    launch plan (ring or wide route, anchors per tile, ring stages, shared
-   memory, CTAs per SM) at nc 80, 3 and 1,203;
+   memory, CTAs per SM, lanes a class row) at nc 80, 3, 10 and 1,203;
 3. the one-launch ``select_scales`` against ``select_scales_plain`` on the
    card, at the serving scales (batch 32; HW 6400 / 1600 / 400) and at ragged
-   and misaligned ones (HW 400 / 49 / 25); nc 80 and 3; f32 and bf16; split
+   and misaligned ones (HW 400 / 49 / 25); nc 80, 3, 10 and 1,203; f32 and bf16; split
    pair, unsplit map and NCHW permute view; plus the tie and +100 / -60
    cases: ``mx`` and ``cid`` exactly equal, ``ltrb`` within 1e-5 (f32) /
    1e-4 (bf16); each launch's copy routes equal to ``expected_routes`` (the
-   route rule in Python); each layout's routes and its time per batch (L2
-   flushed); then the card-only tests of ``tests/test_torch_cuda.py`` in a
-   child pytest;
+   route rule in Python); each layout's routes and, at the serving scales,
+   its time per batch (L2 flushed) beside its bound, and the plain
+   version's time on the split maps; then the card-only tests of
+   ``tests/test_torch_cuda.py`` in a child pytest;
 4. the two trained golden fixtures through ``Predictor(device="cuda")`` in
    f32 (TF32 off) in both entry layouts, ``entry_layouts="auto"``
    (channels-last, the default) and ``"default"`` (NCHW), matched against
@@ -51,12 +52,16 @@ that fails, and without a card. Phases, each printing one line:
    b. LVIS v1's class count: yolo-ms-xs with nc = 1,203, bs 32, 640²,
       seeded weights, BN-folded, conf 1e-5, through
       ``Predictor(entry_layouts="auto")`` in bf16 (its tiles fit a ring:
-      bulk rows and elements) and then in f32 with TF32 off (they do not:
+      bulk rows on every map) and then in f32 with TF32 off (they do not:
       ``select``'s wide route), 4 batches checked and 4 timed each: every
       launch equal to the plain version on the maps it served, its routes
-      those of ``expected_routes``; the kernel tail equal to the plain
-      tail; ms per batch and ``select``'s time (L2 flushed by a write)
-      beside its bound and the plain version's;
+      those of ``expected_routes`` and bulk rows (or wide) on every map;
+      the kernel tail equal to the plain tail; ms per batch and
+      ``select``'s time (L2 flushed by a write) beside its bound and the
+      plain version's;
+   c. the fine-tune configuration (``yolo_ms_tpu/configs/
+      finetune_example.yaml``: yolov8-n, 10 classes, 640²) by 5b's rules,
+      bf16 and f32 (TF32 off), bulk rows on every map;
 6. training on the card:
    a. one f32 train step (TF32 off) of the golden yolov8-n weights with
       SGD-nesterov, weight decay, clipping and EMA, on the card and on the
@@ -225,9 +230,12 @@ The last three lines are the kernel JSON, the nvidia-smi line, and
 instead times the select kernel of another checkout of the repo (``DIR``,
 for example the parent commit unpacked with ``git archive``) against this
 one on the same inputs, in turns (parent, this, this, parent), after
-phases 1 and 2; ``--variants`` (alone or beside ``--parent``) times the
-edited copies of ``select.cu`` in ``SELECT_VARIANTS`` (the copies alone,
-with no compute) against the kernel as built.
+phases 1 and 2, at nc 80 and on 5c's and 5b's bf16 maps; ``--variants``
+(alone or beside ``--parent``) times the edited copies of ``select.cu`` in
+``SELECT_VARIANTS`` (the copies alone, with no compute; the wide route at
+every class count from 256 to 1,730 in bf16; 16 or 32 lanes a class row;
+three CTAs an SM; no class walk; no exp in the box sums) against the
+kernel as built.
 
 The kernel JSON counts ``select`` launches on every path
 (``launches_by_path``): the serving run of phase 5 (both layouts, both
@@ -240,13 +248,15 @@ the (2, 2) mesh (``train_spatial_validate``) and height-sharded serving
 (``serve_height_sharded``), every rank's launches, phase 11's e2e
 benchmark runs (``benchmark_e2e``) and streaming runs
 (``benchmark_streaming``; ``streaming_images``, 11e's two), phase 5b's
-LVIS-width serving (``serve_wide``), 7f's unfolded serving
+LVIS-width serving (``serve_wide``), phase 5c's fine-tune serving
+(``serve_finetune``), 7f's unfolded serving
 (``serve_unfolded``) and 9e's NCHW program (``program_nchw``).
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import glob
@@ -490,12 +500,17 @@ def _route_names(routes) -> str:
     return " ".join(f"{b}/{c}" for b, c in routes)
 
 
+# phase 2's plans and phase 3's class counts: COCO's, the goldens', the
+# fine-tune config's and LVIS's
+PHASE3_NC = (NC, 3, 10, 1203)
+
+
 def phase_kernel_vs_plain(flush: torch.Tensor, name: str) -> float:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for nc in (NC, 3):
+        for nc in PHASE3_NC:
             for set_name, sides in SCALE_SETS:
                 parts = []
                 for layout in LAYOUTS:
@@ -504,10 +519,15 @@ def phase_kernel_vs_plain(flush: torch.Tensor, name: str) -> float:
                     err, routes, _ = compare_select(pairs, dtype, label)
                     worst = max(worst, err)
                     part = f"{layout} err {err:.3e} route {_route_names(routes)}"
-                    if set_name == "serving" and nc == NC:
+                    if set_name == "serving":
                         ms = cuda_ms(lambda: select_scales(pairs, REG_MAX), 20, flush, cover=True)
                         bound = bound_of(*select_bound(pairs, name))[0]
-                        part += f" {ms * 1e3:.1f} us ({bound / ms * 100:.0f} % of bound)"
+                        part += (f" {ms * 1e3:.1f} us (bound {bound * 1e3:.1f} us, "
+                                 f"{bound / ms * 100:.0f} % of it)")
+                        if layout == "split":
+                            plain = cuda_ms(lambda: select_scales_plain(pairs, REG_MAX), 5, flush,
+                                            cover=True)
+                            part += f", plain {plain * 1e3:.1f} us"
                     parts.append(part)
                 hws = "/".join(str(s * s) for s in sides)
                 print(f"phase 3 select_scales {str(dtype)[6:]} B={BATCH} HW={hws} nc={nc}: "
@@ -976,28 +996,34 @@ def check_tail(maps, nc: int, label: str) -> float:
 # fit no ring of shared memory (select's wide route); in bf16 they do.
 WIDE_NC = 1203
 WIDE_BATCHES = 4  # of phase 5's batches, per pass and dtype
+# 5c: the fine-tune configuration, yolo_ms_tpu/configs/finetune_example.yaml
+# (yolov8-n, 10 classes, 640x640); its pretrained path is a placeholder, so
+# the weights are seeded as 5b's
+FINETUNE_ARCH, FINETUNE_NC = "yolov8-n", 10
 
 
-def serve_wide(flush: torch.Tensor, name: str) -> dict:
-    """5b: yolo-ms-xs with LVIS v1's 1,203 classes, bs 32, 640², seeded
-    weights, BN-folded, conf 1e-5, through ``Predictor(entry_layouts=
-    "auto")`` in bf16 and then in f32 (TF32 off), each a counted run of two
-    passes over WIDE_BATCHES batches: the first holds every ``select``
-    launch against ``select_scales_plain`` on the maps it served and its
-    routes against ``expected_routes``; the second is timed. Then the
-    kernel tail against the plain tail, and ``select`` on one batch's maps
-    with L2 flushed by a write beside its bound and the plain version; one
-    line per dtype."""
-    state_dict = seeded_state_dict("yolo-ms-xs", WIDE_NC, seed=1)
+def serve_classes(arch: str, nc: int, phase: str, flush: torch.Tensor, name: str) -> dict:
+    """5b and 5c: ``arch`` with ``nc`` classes, bs 32, 640², seeded weights,
+    BN-folded, conf 1e-5, through ``Predictor(entry_layouts="auto")`` in
+    bf16 and then in f32 (TF32 off), each a counted run of two passes over
+    WIDE_BATCHES batches: the first holds every ``select`` launch against
+    ``select_scales_plain`` on the maps it served and its routes against
+    ``expected_routes`` and, on every map, bulk rows where a ring fits
+    (``plan_fits``) and the wide route where none does; the second is
+    timed. Then the kernel tail against the plain tail, and ``select`` on
+    one batch's maps with L2 flushed by a write beside its bound and the
+    plain version; one line per dtype."""
+    state_dict = seeded_state_dict(arch, nc, seed=1)
     batches = serve_batches()[:WIDE_BATCHES]
     runs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        label = f"5b {str(dtype)[6:]}"
-        predictor = Predictor("yolo-ms-xs", state_dict, num_classes=WIDE_NC,
-                              input_size=(IMG, IMG), conf_thresh=1e-5, batch_size=BATCH,
-                              dtype=dtype, entry_layouts="auto", device="cuda")
+        label = f"{phase} {str(dtype)[6:]}"
+        predictor = Predictor(arch, state_dict, num_classes=nc, input_size=(IMG, IMG),
+                              conf_thresh=1e-5, batch_size=BATCH, dtype=dtype,
+                              entry_layouts="auto", device="cuda")
         predictor.predict_batch(batches[0])  # warm-up
-        spy = SelectSpy()
+        only = MAIN_PATH_ROUTE if select_mod.plan_fits(dtype, nc, REG_MAX) else "wide"
+        spy = SelectSpy(only={label: only})
         spy.layout = label
         host_ms = []
         select.launches = 0
@@ -1012,7 +1038,7 @@ def serve_wide(flush: torch.Tensor, name: str) -> dict:
                     if select.launches != n + 1:
                         raise AssertionError(f"{label}: {select.launches - n} select launches "
                                              f"in one batch")
-                    check_outputs(out, label, WIDE_NC)
+                    check_outputs(out, label, nc)
         launches = select.launches
         if launches != 2 * WIDE_BATCHES:
             raise AssertionError(f"{label}: select launched {launches} times in "
@@ -1023,7 +1049,7 @@ def serve_wide(flush: torch.Tensor, name: str) -> dict:
             with precision:
                 raw = predictor.model(predictor.serve.network_input(x_u8), split_head=True)
             maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
-            tail_err = check_tail(maps, WIDE_NC, label)
+            tail_err = check_tail(maps, nc, label)
             pairs = [(b.flatten(1, 2), c.flatten(1, 2)) for b, c in maps]
             err, routes, _ = compare_select(pairs, dtype, f"{label} maps")
             bytes_ms, ops_ms = select_bound(pairs, name)
@@ -1039,7 +1065,7 @@ def serve_wide(flush: torch.Tensor, name: str) -> dict:
         del predictor, raw, maps, pairs
     for dt, w in runs.items():
         bound_ms, bound_by = bound_of(w["bytes_ms"], w["ops_ms"])
-        print(f"phase 5b serve yolo-ms-xs nc={WIDE_NC} (LVIS v1) bs={BATCH} {IMG}px {dt}"
+        print(f"phase {phase} serve {arch} nc={nc} bs={BATCH} {IMG}px {dt}"
               f"{' (TF32 off)' if dt == 'float32' else ''} entry_layouts=auto: "
               f"{w['host_ms']:.3f} ms/batch predict_batch (host clock, median of "
               f"{WIDE_BATCHES}), {BATCH / w['host_ms'] * 1e3:.1f} img/s; select launches "
@@ -1050,7 +1076,7 @@ def serve_wide(flush: torch.Tensor, name: str) -> dict:
               f"by {bound_by}, {bound_ms / w['ms'] * 100:.0f} % of it; routes "
               f"{_route_names(w['routes'])}), plain {w['plain_ms'] * 1e3:.1f} us")
     return {"launches": sum(r["launches"] for r in runs.values()),
-            "err": max(max(r["err"], r["checked_err"]) for r in runs.values())}
+            "err": max(max(r["err"], r["checked_err"]) for r in runs.values()), "runs": runs}
 
 
 def _ms_pair(values) -> str:
@@ -2373,11 +2399,12 @@ def _load_select_of(checkout: str):
 def phase_parent_ab(parent: str, flush: torch.Tensor, name: str) -> None:
     """The parent checkout's select kernel against this one at the serving
     shapes, on the same inputs, timed in turns (parent, this, this, parent;
-    CUDA events, L2 flushed, median of 20 each); in bf16 also each scale
-    alone, on the split maps (the main path's) and the NCHW views. Loading
-    the parent's module registers its ``torch.library`` op under this one's
-    name, so each kernel is called through its own module's ``_launch`` (one
-    launch for all scales), never through the op."""
+    CUDA events, L2 flushed, median of 20 each): nc 80 in each layout and
+    dtype, in bf16 also each scale alone on the split maps (the main path's)
+    and the NCHW views; then the split bf16 maps of 5c (nc 10) and 5b (nc
+    1,203). Loading the parent's module registers its ``torch.library`` op
+    under this one's name, so each kernel is called through its own
+    module's ``_launch`` (one launch for all scales), never through the op."""
     old = _load_select_of(parent)
     info = old.build()
     print(f"ab parent build: {info['seconds']:.2f} s")
@@ -2395,69 +2422,116 @@ def phase_parent_ab(parent: str, flush: torch.Tensor, name: str) -> None:
         return fns, "; ".join(f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
                               for k, v in times.items())
 
+    def case(pairs, label):
+        fns, timed = turns(pairs)
+        want = fns["this"]()
+        routes = check_routes(pairs, f"ab {label}")
+        got = fns["parent"]()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"ab {label}: parent and this disagree on mx/cid")
+        ltrb_err = (got[2] - want[2]).abs().max().item()
+        bound = bound_of(*select_bound(pairs, name))[0]
+        print(f"ab select {label} B={BATCH} HW=6400/1600/400 (bound {bound * 1e3:.1f} us, ltrb "
+              f"diff {ltrb_err:.1e}; parent routes {_route_names(old.select_scales.last_routes)}, "
+              f"this {_route_names(routes)}): {timed}")
+
     for dtype in (torch.bfloat16, torch.float32):
         for layout in LAYOUTS:
             pairs = [_layout_views(gen, BATCH, s, s, NC, dtype, layout) for s in sides]
-            fns, timed = turns(pairs)
-            want = fns["this"]()
-            routes = check_routes(pairs, f"ab {dtype} {layout}")
-            got = fns["parent"]()
-            torch.cuda.synchronize()
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                raise AssertionError(f"ab {dtype} {layout}: parent and this disagree on mx/cid")
-            ltrb_err = (got[2] - want[2]).abs().max().item()
-            bound = bound_of(*select_bound(pairs, name))[0]
-            print(f"ab select {str(dtype)[6:]} {layout} B={BATCH} HW=6400/1600/400 "
-                  f"(bound {bound * 1e3:.1f} us, ltrb diff {ltrb_err:.1e}; parent routes "
-                  f"{_route_names(old.select_scales.last_routes)}, this "
-                  f"{_route_names(routes)}): {timed}")
+            case(pairs, f"{str(dtype)[6:]} {layout}")
             if dtype == torch.bfloat16 and layout in ("split", "nchw"):
                 for box, cls in pairs:
                     print(f"ab select bf16 {layout} HW={box.shape[1]} alone: "
                           f"{turns([(box, cls)])[1]}")
+    for phase, nc in (("5c", FINETUNE_NC), ("5b", WIDE_NC)):
+        pairs = [_layout_views(gen, BATCH, s, s, nc, torch.bfloat16, "split") for s in sides]
+        case(pairs, f"bf16 split nc={nc} ({phase}'s maps)")
 
 
 # Edited copies of csrc/select.cu that --variants times against the kernel
-# as built: name -> (a line of the source, the line put in its place)
+# as built: name -> (a line of the source, the line put in its place, the
+# (dtype, nc) of the split maps at the serving scales it is timed on, and
+# whether its mx and cid must equal the kernel's)
 SELECT_VARIANTS = {
-    "copies alone (no compute on anchor-major tiles)": (
-        "      compute_rows<T>(p, tile, smem + si * p.stage_bytes);", "      ;"),
+    "copies alone (no compute)": (
+        "    if (p.scale[locate(p, tile).scale].box.route == kTma)",
+        "    if (true) {} else if (p.scale[locate(p, tile).scale].box.route == kTma)",
+        [(torch.bfloat16, NC), (torch.float32, NC), (torch.bfloat16, FINETUNE_NC),
+         (torch.bfloat16, 3), (torch.bfloat16, WIDE_NC)], False),
+    "the wide route at every class count": (
+        "  const bool ring = make_plan(elem_bytes, 4 * reg_max + nc, &plan);",
+        "  const bool ring = false;",
+        [(torch.bfloat16, nc) for nc in (256, 400, 640, 826, 1000, 1203, 1400, 1730)], True),
+    "16 lanes a class row at 32-anchor tiles": (
+        "      const int lane_shift = shift >= 6 ? 2 : 3;",
+        "      const int lane_shift = shift >= 6 ? 2 : 4;",
+        [(torch.bfloat16, nc) for nc in (826, 1203, 1730)], True),
+    "32 lanes a class row at 32-anchor tiles": (
+        "      const int lane_shift = shift >= 6 ? 2 : 3;",
+        "      const int lane_shift = shift >= 6 ? 2 : 5;",
+        [(torch.bfloat16, nc) for nc in (826, 1203, 1730)], True),
+    "three CTAs an SM (75 KB each)": (
+        "constexpr int kSmemTarget = 113 * 1024;  // two CTAs per SM",
+        "constexpr int kSmemTarget = 75 * 1024;",
+        [(torch.bfloat16, NC), (torch.bfloat16, FINETUNE_NC), (torch.float32, FINETUNE_NC)],
+        True),
+    "no class walk on quad tiles": (
+        "    if (Quads) class_max_lanes<Rows16>(cls_s + ar * p.nc, j, 2, p.nc, &best, &id);",
+        "    ;",
+        [(torch.bfloat16, NC), (torch.bfloat16, FINETUNE_NC)], False),
+    "no exp in the box sums": (
+        "      const float e = expf(fmaxf(x - c, -60.f));",
+        "      const float e = fmaxf(x - c, -60.f);",
+        [(torch.bfloat16, NC), (torch.bfloat16, FINETUNE_NC)], True),
 }
 
 
 def phase_select_variants(flush: torch.Tensor, name: str) -> None:
-    """Each of ``SELECT_VARIANTS`` built into the ignored build directory and
-    timed against the kernel as built, one launch for the flagship's three
-    scales of split maps per call, in turns (kernel, variant, variant,
-    kernel; CUDA events, L2 flushed by a write, median of 20 each), in bf16
-    and f32."""
+    """Each of ``SELECT_VARIANTS`` built into the ignored build directory
+    (all builds started together) and timed against the kernel as built, one
+    launch for the three serving scales of split maps per call, in turns
+    (kernel, variant, variant, kernel; CUDA events, L2 flushed by a write,
+    median of 20 each), on each of its (dtype, nc); the two outputs must
+    agree on mx and cid where the variant computes."""
     src = open(select_mod.SOURCE).read()
-    libs = {"kernel": select_mod._load()}
-    for i, (label, (old, new)) in enumerate(SELECT_VARIANTS.items()):
+    os.makedirs(select_mod.BUILD_DIR, exist_ok=True)
+    paths = {}
+    for i, (label, (old, new, *_)) in enumerate(SELECT_VARIANTS.items()):
         if src.count(old) != 1:
             raise AssertionError(f"variant {label!r}: its line is not once in select.cu")
-        path = os.path.join(select_mod.BUILD_DIR, f"select_variant_{i}.cu")
-        os.makedirs(select_mod.BUILD_DIR, exist_ok=True)
-        with open(path, "w") as f:
+        paths[label] = os.path.join(select_mod.BUILD_DIR, f"select_variant_{i}.cu")
+        with open(paths[label], "w") as f:
             f.write(src.replace(old, new))
-        libs[label] = select_mod.bind(select_mod.build(path)["path"])
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        built = {label: pool.submit(select_mod.build, path) for label, path in paths.items()}
+        libs = {label: select_mod.bind(f.result()["path"]) for label, f in built.items()}
+    kernel = select_mod._load()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    for dtype in (torch.bfloat16, torch.float32):
-        pairs = [_layout_views(gen, BATCH, s, s, NC, dtype, "split")
-                 for s in dict(SCALE_SETS)["serving"]]
-        boxes, clss = [list(x) for x in zip(*pairs)]
-        bound = bound_of(*select_bound(pairs, name))[0]
-        for label, lib in list(libs.items())[1:]:
-            fns = {k: (lambda lib=libs[k]: select_mod.launch_with(lib, boxes, clss, REG_MAX))
-                   for k in ("kernel", label)}
+    for label, (_, _, cases, same_classes) in SELECT_VARIANTS.items():
+        for dtype, nc in cases:
+            pairs = [_layout_views(gen, BATCH, s, s, nc, dtype, "split")
+                     for s in dict(SCALE_SETS)["serving"]]
+            boxes, clss = [list(x) for x in zip(*pairs)]
+            bound = bound_of(*select_bound(pairs, name))[0]
+            fns = {k: (lambda lib=lib: select_mod.launch_with(lib, boxes, clss, REG_MAX))
+                   for k, lib in (("kernel", kernel), ("variant", libs[label]))}
+            if same_classes:
+                want, got = fns["kernel"](), fns["variant"]()
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"variant {label!r} nc={nc}: mx/cid differ")
+            routes = {}
             times = {k: [] for k in fns}
-            for who in ("kernel", label, label, "kernel"):
+            for who in ("kernel", "variant", "variant", "kernel"):
                 times[who].append(cuda_ms(fns[who], 20, flush, cover=True))
-            print(f"variant select {str(dtype)[6:]} split B={BATCH} HW=6400/1600/400 (bound "
-                  f"{bound * 1e3:.1f} us): " + "; ".join(
-                      f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
+                routes[who] = _route_names(select_scales.last_routes)
+            print(f"variant select {label}: {str(dtype)[6:]} split nc={nc} B={BATCH} "
+                  f"HW=6400/1600/400 (bound {bound * 1e3:.1f} us): " + "; ".join(
+                      f"{k} ({routes[k]}) " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us"
                       for k, v in times.items()))
+            del pairs, boxes, clss, fns
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3512,9 +3586,9 @@ def main() -> int:
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
     plans = "; ".join(
         "{} nc={}: {route}, {tile} anchors per tile, {stages} stages, {smem_bytes} B shared per "
-        "CTA, {ctas_per_sm} CTAs per SM on {sms} SMs".format(str(dt)[6:], nc,
-                                                             **select_mod.plan(dt, nc))
-        for dt in (torch.bfloat16, torch.float32) for nc in (NC, 3, WIDE_NC)
+        "CTA, {ctas_per_sm} CTAs per SM on {sms} SMs, {lanes} lanes a class row".format(
+            str(dt)[6:], nc, **select_mod.plan(dt, nc))
+        for dt in (torch.bfloat16, torch.float32) for nc in PHASE3_NC
     )
     print(f"phase 2 build select.cu: {info['seconds']:.2f} s; {'; '.join(regs)}; plan: {plans}")
 
@@ -3534,7 +3608,8 @@ def main() -> int:
     runs = [serve_model(arch, flush) for arch in SERVE_ARCHS]
     for r in runs:
         print_serving(r)
-    wide = serve_wide(flush, name)
+    wide = serve_classes("yolo-ms-xs", WIDE_NC, "5b", flush, name)
+    finetune = serve_classes(FINETUNE_ARCH, FINETUNE_NC, "5c", flush, name)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         phase_step_parity()
@@ -3560,9 +3635,10 @@ def main() -> int:
     # one batch of the flagship, one launch
     sel = runs[0]["select"]
     bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
-    worst = max([worst, wide["err"]] + [r["select"]["err"] for r in runs])
+    worst = max([worst, wide["err"], finetune["err"]] + [r["select"]["err"] for r in runs])
     serve_launches = sum(r["launches"] for r in runs)
     tools["serve_wide"] = wide["launches"]
+    tools["serve_finetune"] = finetune["launches"]
     kernels = [{
         "name": "select",
         "route": "cuda",

@@ -31,6 +31,11 @@ LTRB_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # the serving scales at 640 px, and ragged / misaligned ones: HW 400 is not a
 # multiple of the tile, and HW 49 and 25 rows are not 16-byte aligned
 SCALE_SETS = {"serving": [80, 40, 20], "ragged": [20, 7, 5]}
+# class counts with a ring of shared memory: around the 16-byte vectors (8
+# bf16 or 4 f32 classes), the fine-tune config's 10, VOC's 20, past 255,
+# LVIS's 1,203 and the last ring counts (1,730 bf16, 826 f32)
+RING_NC = {torch.bfloat16: [1, 3, 5, 10, 20, 79, 81, 255, 1203, 1730],
+           torch.float32: [1, 3, 5, 10, 20, 79, 81, 255, 826]}
 LR = 0.01  # the train step's learning rate (its first update's, no warmup)
 
 
@@ -86,6 +91,60 @@ def test_scales_match_plain(card, scales, nc, dtype, layout):
     assert select_scales.last_routes == expected_routes(pairs, REG_MAX)
     assert got[2].shape == (4, sum(s * s for s in SCALE_SETS[scales]), 4)
     _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+@pytest.mark.parametrize("scales", list(SCALE_SETS))
+@pytest.mark.parametrize("dtype,nc", [(dt, nc) for dt, ncs in RING_NC.items() for nc in ncs])
+def test_class_rows_of_any_width_match_plain(card, dtype, nc, scales, layout):
+    """Class rows that are not 16-byte multiples, staged in the ring: split
+    maps at the serving scales take bulk rows for both maps (one byte range
+    a tile), whatever the row width; other maps the route ``expected_routes``
+    names. Every row walked as head, vectors and tail."""
+    pairs = [_views(card, 2, s, s, nc, dtype, layout) for s in SCALE_SETS[scales]]
+    assert plan_fits(dtype, nc, REG_MAX)
+    got = select_scales(pairs, REG_MAX)
+    assert select_scales.last_routes == expected_routes(pairs, REG_MAX)
+    if layout == "split" and scales == "serving":
+        assert select_scales.last_routes == [("bulk_rows", "bulk_rows")] * 3
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nc", [5, 10, 81, 1203])
+def test_ties_across_a_rows_head_and_vectors(card, nc, dtype, layout):
+    """Anchor a's class row starts (a * nc * elem_bytes) % 16 bytes past a
+    16-byte boundary of its tile. Where it starts off one, 2.0 on the last
+    class of the scalar head and on the first class of the first vector
+    gives the head's; where it starts on one, 2.0 on classes 0 and nc - 1
+    gives 0; every third anchor instead holds 3.0 on its last class (the
+    tail), which wins. HW 400 and 49; the rest of each row 0."""
+    es = torch.empty((), dtype=dtype).element_size()
+    pairs = [_views(card, 2, s, s, nc, dtype, layout) for s in (20, 7)]
+    want = []
+    for _, cls in pairs:
+        hw = cls.shape[1]
+        vals = torch.zeros(hw, nc)
+        ids = torch.empty(hw, dtype=torch.int32)
+        for a in range(hw):
+            head = min(nc, (16 - a * nc * es % 16) % 16 // es)
+            if a % 3 == 2:
+                vals[a, nc - 1], ids[a] = 3.0, nc - 1
+            elif 0 < head < nc:
+                vals[a, head - 1] = vals[a, head] = 2.0
+                ids[a] = head - 1
+            else:
+                vals[a, 0] = vals[a, nc - 1] = 2.0
+                ids[a] = 0
+        cls.copy_(vals.expand(2, hw, nc).to(device="cuda", dtype=dtype))
+        want.append(ids.expand(2, hw))
+    got = select_scales(pairs, REG_MAX)
+    assert select_scales.last_routes == expected_routes(pairs, REG_MAX)
+    _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), dtype)
+    assert torch.equal(got[1].cpu(), torch.cat(want, dim=1))
 
 
 @pytest.mark.cuda
@@ -243,7 +302,9 @@ def test_plan_route_is_plan_fits(card, dtype, last):
         assert p["route"] == ("ring" if plan_fits(dtype, nc, REG_MAX) else "wide")
         assert p["route"] == ("ring" if nc <= last else "wide")
         if p["route"] == "wide":
-            assert (p["tile"], p["stages"], p["smem_bytes"]) == (256, 0, 0)
+            assert (p["tile"], p["stages"], p["smem_bytes"], p["lanes"]) == (256, 0, 0, 32)
+        else:
+            assert p["lanes"] == (8 if p["tile"] == 32 else 4)
         assert p["ctas_per_sm"] >= 1 and p["sms"] >= 1
 
 
@@ -330,7 +391,9 @@ def test_channels_last_serving_on_card(card, arch):
     under auto every conv's output is channels-last on the card (inputs
     too, but the C2f channel slices), and ``select`` takes no TMA route (its
     maps are contiguous NHWC rows): the box maps (256-byte f32 rows) take
-    the bulk-rows route, the 3-class maps (12-byte rows) the element one."""
+    the bulk-rows route, and so do the 3-class maps (12-byte rows) of HW 400
+    and 100; an image of HW 25 is 300 bytes, not a 16-byte multiple, so that
+    class map is copied element by element."""
     import os
 
     import numpy as np
@@ -372,7 +435,7 @@ def test_channels_last_serving_on_card(card, arch):
     assert strided_out == []
     assert all(".m_0.conv1." in n for n in strided_in), strided_in
     assert "tma" not in [r for pair in routes for r in pair], routes
-    assert routes == [("bulk_rows", "elements")] * 3, routes
+    assert routes == [("bulk_rows", "bulk_rows")] * 2 + [("bulk_rows", "elements")], routes
     assert torch.equal(got["valid"], want["valid"])
     assert torch.equal(got["classes"], want["classes"])
     torch.testing.assert_close(got["boxes"], want["boxes"], rtol=0.0, atol=1e-3)

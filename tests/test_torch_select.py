@@ -5,7 +5,8 @@ Cases of tests/test_pallas_select.py: random [2, 400, 144] maps in f32 and
 bf16 (mx rtol 1e-6, cid equal, ltrb rtol/atol 1e-5), all-equal class logits
 (id 0) and a +100 bin (3.0, finite); the inputs fed as a split pair, as
 slices of an unsplit map, and as a non-contiguous NCHW permute view; and
-``select_scales`` over three scales (HW 64 / 16 / 4, nc 80 and 3) against
+``select_scales`` over three scales (HW 64 / 16 / 4; nc 80, 3, the
+fine-tune config's 10 and an odd 5) against
 the JAX kernel's outputs per scale, concatenated. The CUDA kernel itself is
 held against this plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -67,7 +68,7 @@ SCALE_SIDES = [(8, 8), (4, 4), (2, 2)]  # HW 64 / 16 / 4
 
 @pytest.mark.parametrize("layout", ["split", "unsplit", "nchw"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nc", [NC, 3])
+@pytest.mark.parametrize("nc", [NC, 3, 10, 5])
 def test_select_scales_matches_concatenated_pallas_kernel(nc, dtype, layout):
     """All scales in one call equal the JAX kernel per scale, concatenated."""
     rng = np.random.default_rng(7)

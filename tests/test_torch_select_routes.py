@@ -42,6 +42,14 @@ def _offset(b, side, nc, dtype):
     return box, cls
 
 
+def _padded(b, side, nc, dtype):
+    """Contiguous NHWC maps that are the first HW rows of maps 64 rows
+    taller: packed rows and a 16-byte batch stride whatever HW is."""
+    hw = side * side
+    box = torch.zeros(b, hw + 64, NB, dtype=dtype)[:, :hw]
+    return box, torch.zeros(b, hw + 64, nc, dtype=dtype)[:, :hw]
+
+
 def _mixed(b, side, nc, dtype):
     """An NCHW box view beside a contiguous NHWC class map."""
     return _nchw(b, side, nc, dtype)[0], _split(b, side, nc, dtype)[1]
@@ -61,10 +69,26 @@ CASES = {
     "auto-bf16-hw49-hw25": (_split, 4, [7, 5], 80, BF16, [BULK] * 2),
     "unsplit-bf16-hw49-hw25": (_unsplit, 4, [7, 5], 80, BF16, [BULK] * 2),
     "nchw-bf16-hw49-hw25": (_nchw, 4, [7, 5], 80, BF16, [ELEMS] * 2),
-    # nc 3: 134-byte unsplit rows, 6-byte split class rows
+    # nc 3: 134-byte unsplit rows; 12-byte split class rows are packed, so
+    # one tile is one byte range, but an image of HW 25 is 300 bytes
     "unsplit-bf16-nc3": (_unsplit, 4, [20], 3, BF16, [ELEMS]),
-    "auto-f32-nc3": (_split, 2, [20, 10, 5], 3, F32, [("bulk_rows", "elements")] * 3),
+    "auto-f32-nc3": (_split, 2, [20, 10, 5], 3, F32,
+                     [BULK, BULK, ("bulk_rows", "elements")]),
     "offset-2-bytes": (_offset, 4, [20], 80, BF16, [ELEMS]),
+    "offset-2-bytes-nc10": (_offset, 4, [20, 10], 10, BF16, [ELEMS] * 2),
+    # packed class rows of any width at the 640 px scales: the fine-tune
+    # config's 10 classes and VOC's 20, 20- to 80-byte rows
+    **{f"auto-{dt}-nc{nc}-640px": (_split, 2, [80, 40, 20], nc, dtype, [BULK] * 3)
+       for dt, dtype in (("bf16", BF16), ("f32", F32)) for nc in (10, 20)},
+    # the last tile's byte range (and the image's) not a 16-byte multiple:
+    # HW 25 x 3 classes, 150 bytes in bf16; 49 x 10, 980 bytes; the class
+    # maps stay on elements even where the batch stride is aligned
+    "padded-bf16-nc3-hw25": (_padded, 2, [5], 3, BF16, [("bulk_rows", "elements")]),
+    "padded-bf16-nc10-hw49-hw16": (_padded, 2, [7, 4], 10, BF16,
+                                   [("bulk_rows", "elements"), BULK]),
+    # one image: the image's own bytes decide
+    "one-image-bf16-nc10": (_split, 1, [80, 40, 20], 10, BF16, [BULK] * 3),
+    "one-image-bf16-nc3-hw25": (_split, 1, [5], 3, BF16, [("bulk_rows", "elements")]),
     "mixed-nchw-box": (_mixed, 4, [20], 80, BF16, [("elements", "bulk_rows")]),
     # one image: the batch stride is never stepped
     "one-image-nc3-unsplit-f32": (_unsplit, 1, [7], 4, F32, [BULK]),
@@ -72,10 +96,12 @@ CASES = {
     "auto-f32-nc300": (_split, 2, [4, 2], 300, F32, [BULK] * 2),
     "unsplit-f32-nc300": (_unsplit, 2, [4], 300, F32, [("bulk_rows", "elements")]),
     "nchw-f32-nc300": (_nchw, 2, [4], 300, F32, [ELEMS]),
-    # the last class counts with a ring, and the first without (LVIS: 1,203)
-    "auto-f32-nc826": (_split, 2, [4], 826, F32, [("bulk_rows", "elements")]),
-    "auto-bf16-nc1730": (_split, 2, [4], 1730, BF16, [("bulk_rows", "elements")]),
-    "auto-bf16-nc1203": (_split, 2, [4, 2], 1203, BF16, [("bulk_rows", "elements")] * 2),
+    # the last class counts with a ring, and the first without (LVIS: 1,203);
+    # HW 4 x 1,203 bf16 classes is 9,624 bytes, not a 16-byte multiple
+    "auto-f32-nc826": (_split, 2, [4], 826, F32, [BULK]),
+    "auto-bf16-nc1730": (_split, 2, [4], 1730, BF16, [BULK]),
+    "auto-bf16-nc1203": (_split, 2, [4, 2], 1203, BF16, [BULK, ("bulk_rows", "elements")]),
+    "auto-bf16-nc1203-640px": (_split, 1, [80, 40, 20], 1203, BF16, [BULK] * 3),
     **{f"{make.__name__[1:]}-{dt}-nc{nc}-wide": (make, 2, [4, 2], nc, dtype, [WIDE] * 2)
        for make in (_split, _unsplit, _nchw)
        for dt, dtype, nc in (("f32", F32, 827), ("f32", F32, 1203), ("bf16", BF16, 1731))},

@@ -27,33 +27,52 @@
 //   tiles are in flight while one is computed. The copy route is chosen per
 //   map on the host:
 //   * bulk rows (the main path: the contiguous NHWC head maps of
-//     entry_layouts="auto"): a map whose channel stride is 1 and whose
-//     anchor and batch strides and base are 16-byte aligned. A tile of T
-//     anchors lands anchor-major, [T, C] at C elements a row. Packed rows
-//     (anchor stride C) are one byte range per tile, fetched by one 1-D
-//     `cp.async.bulk` of the tile's live rows (16 KB of box and 20 KB of
-//     class rows at T = 128 in bf16); strided rows (an unsplit map's
-//     slices) by one `cp.async.bulk.tensor` of a 3-D map {C, HW, B}, box
+//     entry_layouts="auto"): a map whose channel stride is 1 and whose base
+//     and batch stride are 16-byte aligned. A tile of T anchors lands
+//     anchor-major, [T, C] at C elements a row. Packed rows (anchor stride
+//     C) are one byte range per tile, fetched by one 1-D `cp.async.bulk` of
+//     the tile's live rows (16 KB of box and 20 KB of class rows at T = 128
+//     in bf16). The copy needs only the range's start and length to be
+//     16-byte multiples, not each row: a tile starts at a0 * C elements with
+//     a0 a multiple of T >= 32, so every range is one where the HW rows of
+//     an image are (HW * C * elem_bytes % 16 == 0). Every class count at
+//     640x640 (HW 6400 / 1600 / 400) qualifies, in bf16 and f32; a map whose
+//     image is not a 16-byte multiple (HW 25 at nc 3) takes the elements
+//     route, so no ragged tail is copied by threads. Strided rows (an
+//     unsplit map's slices) need 16-byte rows and anchor stride and at most
+//     256 channels: one `cp.async.bulk.tensor` of a 3-D map {C, HW, B}, box
 //     {C, T, 1}, whose rows past HW the hardware fills with zeros.
 //   * TMA (NCHW views): a map whose anchor stride is 1 (the
 //     permute(0, 2, 3, 1) view of an NCHW head output) is a 3-D tensor
 //     [B, C, HW] to the Tensor Memory Accelerator, one `cp.async.bulk.tensor`
 //     per map and tile into a channel-major [C, T] slab.
-//   * elements: a map whose rows or strides are not 16-byte aligned (HW =
-//     49 in NCHW, the 134-byte rows of an unsplit nc = 3 map, a 6-byte class
-//     row) is copied element by element by all threads, anchor-major. A
-//     scale whose one map would take TMA and the other not copies both
-//     anchor-major (the TMA one by elements), so each tile has one layout.
-// - Compute on anchor-major tiles (bulk rows, elements): four neighbouring
-//   threads share one anchor. Thread j reads the bins of box side j and
-//   every fourth 16-byte chunk of the class row from j on, as 16-byte
-//   vectors where the rows allow it (in bf16 two neighbouring classes or
-//   bins per compare or max, as bf16x2); two shuffles give the quad the row
-//   max of the bins (the shift) and the first-index class max (a later lane
-//   wins only when strictly greater, or equal at a lower index). Each thread
-//   then sums side j in f32, in the same order as the channel-major compute,
-//   so both give the same ltrb; the quad stores ltrb as one 16-byte row. No
-//   transpose, no shared-memory hand-over and no barrier inside the tile.
+//   * elements: any other map (an unaligned base, HW = 49 in NCHW, the
+//     134-byte rows of an unsplit nc = 3 map, an image of 300 bytes) is
+//     copied by all threads, anchor-major, with consecutive threads on the
+//     map's unit stride (along each row on channels-last maps, along the
+//     anchors on NCHW views). A scale whose one map would take TMA and the
+//     other not copies both anchor-major (the TMA one by elements), so each
+//     tile has one layout.
+// - Compute on anchor-major tiles (bulk rows, elements). A class row starts
+//   at a * nc elements, on no 16-byte boundary in general (nc = 10 in bf16:
+//   20-byte rows), so each lane walks its share of a row in three parts,
+//   in ascending order: a scalar head up to the row's first 16-byte
+//   boundary, 16-byte vectors (in bf16 two neighbouring classes per compare,
+//   as bf16x2), and a scalar tail past the last whole vector; rows of whole
+//   vectors (nc = 80) skip head and tail in a code path of their own. Each lane
+//   keeps the first index of its max by a strict `>`; the lanes of an
+//   anchor merge by shuffles, a later lane winning only when strictly
+//   greater, or equal at a lower index. At tiles of 64 and 128 anchors
+//   (COCO-like widths) four neighbouring threads share one anchor: thread j
+//   reads box side j and every fourth unit of the class row from j on. At
+//   32-anchor tiles (the widest rows: LVIS's 1,203 classes in bf16) eight
+//   lanes share each class row, so all 256 threads work, and the box sides
+//   are then taken by quads in a loop of their own. For the box sides two
+//   shuffles give the quad the row max of the bins (the shift); each thread
+//   then sums side j in f32, in the same order as the channel-major
+//   compute, so both give the same ltrb; the quad stores ltrb as one
+//   16-byte row. No transpose, no shared-memory hand-over and no barrier
+//   inside the tile.
 // - Compute on channel-major tiles (TMA) is split by role into four groups
 //   of threads; each thread holds two neighbouring anchors (one 32-bit word
 //   of a bf16 row), so consecutive threads read consecutive words and every
@@ -86,8 +105,9 @@
 // issued instructions (an expf is about eight) it is not free: on an NVIDIA
 // H100 80GB HBM3 at 700 W the flagship launch above takes about 47 us on
 // bulk rows or TMA with L2 flushed by a write, and its copies alone about
-// 39 us (chip_smoke.py phases 3 and 5 and its --variants print these
-// times). The kernel allocates nothing, launches on the caller's stream and
+// 39 us; yolo-ms-xs's maps at LVIS's 1,203 classes in bf16 about 0.25 ms
+// against a 0.205 ms bound (chip_smoke.py phases 3 and 5 and its --variants
+// print these times). The kernel allocates nothing, launches on the caller's stream and
 // does not synchronize.
 
 #include <cuda.h>
@@ -136,7 +156,9 @@ struct Params {
   float4* ltrb;
   int n_scales, n_tiles, nc, reg_max;
   int tile, tile_shift, stages, stage_bytes;
-  int box_vec, cls_vec;  // anchor-major rows read as 16-byte vectors
+  int lane_shift;  // anchor-major tiles: log2 of the lanes that share one class row
+  int box_vec;     // anchor-major box sides read as 16-byte vectors
+  int cls_rows16;  // anchor-major class rows are whole 16-byte vectors
 };
 
 struct TileAt {
@@ -194,11 +216,29 @@ __device__ __forceinline__ TileAt locate(const Params& p, int tile) {
 }
 
 // The elements route: the map's rows of anchors [a0, a0 + n) of image b
-// into dst[a * channels + c], anchor-major, by all threads.
+// into dst[a * channels + c], anchor-major, by all threads, eight loads in
+// flight a thread. Consecutive threads read along the map's unit stride:
+// the channels of each row (class stride 1), else the anchors.
 template <typename T>
 __device__ void stage_elements(const Map& m, int channels, int b, int a0, int n, int tile_shift,
                                T* dst) {
   const T* base = static_cast<const T*>(m.ptr) + (long long)b * m.sb;
+  if (m.sc == 1) {
+    const T* rows = base + (long long)a0 * m.shw;
+    const int items = n * channels;
+    for (int e0 = threadIdx.x; e0 < items; e0 += 8 * kThreads) {
+      T v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = e0 + k * kThreads, a = e / channels;
+        if (e < items) v[k] = rows[(long long)a * m.shw + (e - a * channels)];
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (e0 + k * kThreads < items) dst[e0 + k * kThreads] = v[k];
+    }
+    return;
+  }
   const int tmask = (1 << tile_shift) - 1;
   const int items = channels << tile_shift;
   for (int e0 = threadIdx.x; e0 < items; e0 += 8 * kThreads) {
@@ -427,65 +467,117 @@ __device__ __forceinline__ void unpack(const uint4& w, float (&x)[8]) {
     x[2 * i] = __uint_as_float(v[i] << 16), x[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
 }
 
-// f(k, x) for the elements x = row[k] of the units u0, u0 + du, ... below
-// end, in ascending order: a unit is one element, or with vec the 16 bytes
-// starting at element u * (16 / sizeof(T)).
+// f(k, x) for the elements x = row[k], k < end, in ascending order: with
+// vec as 16-byte vectors (end a multiple of 16 / sizeof(T)), else one by one.
 template <typename T, typename F>
-__device__ __forceinline__ void visit(const T* row, int u0, int du, int end, bool vec, F&& f) {
+__device__ __forceinline__ void visit(const T* row, int end, bool vec, F&& f) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec) {
-    for (int k = u0 * kVec; k < end; k += du * kVec) {
+    for (int k = 0; k < end; k += kVec) {
       float x[kVec];
       unpack(*reinterpret_cast<const uint4*>(row + k), x);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) f(k + i, x[i]);
     }
   } else {
-    for (int k = u0; k < end; k += du) f(k, to_f32(row[k]));
+    for (int k = 0; k < end; ++k) f(k, to_f32(row[k]));
   }
 }
 
 constexpr uint32_t kNoClass = 0xffffu;  // above every class id of the ring (nc <= 1,730)
 
-// The max and its first index over the class units j, j + 4, ... of one
-// anchor-major row, by a strict `>` in ascending order. The id starts at
-// the lane's first class, so a row of -inf gives that class; a lane with
-// no class gives (-inf, kNoClass), which loses every tie.
+// Where one anchor-major row of nc elements meets 16-byte boundaries in
+// shared memory: head elements before the first, then whole 16-byte
+// vectors, then the tail from element `tail` on.
+struct RowParts {
+  int head, vectors, tail;
+};
+
 template <typename T>
-__device__ __forceinline__ void class_max_row(const T* row, int j, int nc, bool vec, float* best,
+__device__ __forceinline__ RowParts row_parts(const T* row, int nc) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uint32_t off = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(row)) & 15u;
+  const int head = min(nc, (int)(((16u - off) & 15u) / sizeof(T)));
+  const int vectors = (nc - head) / kVec;
+  return {head, vectors, head + vectors * kVec};
+}
+
+// Lane j's scalar classes of a row: head elements k[0], k[1] and tail
+// elements k[2], k[3] (-1 where the lane has none), with their values.
+// Head and tail are each under 16 bytes, so with at least four lanes a row
+// no lane has more than two of either; the four loads are issued together.
+template <typename T>
+__device__ __forceinline__ void row_ends(const T* row, int j, int lanes, const RowParts& r, int nc,
+                                         int (&k)[4], float (&x)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    k[q] = (q < 2 ? 0 : r.tail) + j + (q & 1) * lanes;
+    if (k[q] >= (q < 2 ? r.head : nc)) k[q] = -1;
+    x[q] = k[q] >= 0 ? to_f32(row[k[q]]) : 0.f;
+  }
+}
+
+// The max and its first index over lane j's classes of one anchor-major
+// class row, `lanes` lanes sharing the row: head elements j, j + lanes, ...,
+// then the vectors j, j + lanes, ..., then the tail elements tail + j, ...,
+// in ascending order by a strict `>`. Rows16: every row is whole 16-byte
+// vectors (nc * elem_bytes % 16 == 0), so there is no head or tail. The
+// lane's first class is always taken, so a row of -inf gives that class; a
+// lane with no class gives (-inf, kNoClass), which loses every tie.
+template <bool Rows16, typename T>
+__device__ __forceinline__ void class_max_row(const T* row, int j, int lanes, int nc, float* best,
                                               uint32_t* id) {
   constexpr int kVec = 16 / sizeof(T);
-  const int first = vec ? j * kVec : j;
+  const RowParts r = Rows16 ? RowParts{0, nc / kVec, nc} : row_parts(row, nc);
   float b = __int_as_float(0xff800000);  // -inf
-  uint32_t i = first < nc ? first : kNoClass;
-  visit(row, j, 4, nc, vec, [&](int k, float x) {
-    if (x > b) b = x, i = k;
-  });
+  uint32_t i = kNoClass;
+  auto take = [&](int k, float x) {
+    if (x > b || i == kNoClass) b = x, i = k;
+  };
+  int ke[4] = {-1, -1, -1, -1};
+  float xe[4];
+  if (!Rows16) row_ends(row, j, lanes, r, nc, ke, xe);
+  for (int q = 0; q < 2; ++q)
+    if (ke[q] >= 0) take(ke[q], xe[q]);
+  for (int v = j; v < r.vectors; v += lanes) {
+    const int k = r.head + v * kVec;
+    float x[kVec];
+    unpack(*reinterpret_cast<const uint4*>(row + k), x);
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) take(k + q, x[q]);
+  }
+  for (int q = 2; q < 4; ++q)
+    if (ke[q] >= 0) take(ke[q], xe[q]);
   *best = b;
   *id = i;
 }
 
-// bf16 rows as 16-byte vectors: two neighbouring classes per compare, the
-// even classes in the low halves, the odd ones in the high halves.
-template <>
-__device__ __forceinline__ void class_max_row(const __nv_bfloat16* row, int j, int nc, bool vec,
+// bf16: the vectors two neighbouring classes per compare, the even ones of
+// the vector in the low halves and the odd ones in the high halves; the
+// head and tail as scalars. The three maxima meet by value, then index.
+template <bool Rows16>
+__device__ __forceinline__ void class_max_row(const __nv_bfloat16* row, int j, int lanes, int nc,
                                               float* best, uint32_t* id) {
-  if (!vec) {
-    float b = __int_as_float(0xff800000);
-    uint32_t i = j < nc ? j : kNoClass;
-    for (int k = j; k < nc; k += 4) {
-      const float x = to_f32(row[k]);
-      if (x > b) b = x, i = k;
-    }
-    *best = b;
-    *id = i;
-    return;
+  const RowParts r = Rows16 ? RowParts{0, nc / 8, nc} : row_parts(row, nc);
+  float bs = __int_as_float(0xff800000);
+  uint32_t is = kNoClass;
+  auto take = [&](int k, float x) {
+    if (x > bs || is == kNoClass) bs = x, is = k;
+  };
+  if (!Rows16) {  // head and tail, in ascending order
+    int ke[4];
+    float xe[4];
+    row_ends(row, j, lanes, r, nc, ke, xe);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (ke[q] >= 0) take(ke[q], xe[q]);
   }
   uint32_t b = 0xff80ff80u;  // -inf, -inf
-  uint32_t ids = j * 8 < nc ? (uint32_t)(j * 8) * 0x10001u + 0x10000u : 0xffffffffu;
-  for (int k = j * 8; k < nc; k += 32) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + k);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t ids = j < r.vectors ? (uint32_t)(r.head + j * 8) * 0x10001u + 0x10000u : 0xffffffffu;
+  for (int v = j; v < r.vectors; v += lanes) {
+    const int k = r.head + v * 8;
+    const uint4 w4 = *reinterpret_cast<const uint4*>(row + k);
+    const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
     const uint32_t k2 = (uint32_t)k * 0x10001u + 0x10000u;  // ids of w[0]'s two classes
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -495,18 +587,40 @@ __device__ __forceinline__ void class_max_row(const __nv_bfloat16* row, int j, i
       ids = (ids & ~gt) | ((k2 + q * 0x20002u) & gt);
     }
   }
-  const float lo = __uint_as_float(b << 16), hi = __uint_as_float(b & 0xffff0000u);
-  const uint32_t ilo = ids & 0xffffu, ihi = ids >> 16;
-  const bool take_hi = hi > lo || (hi == lo && ihi < ilo);
-  *best = take_hi ? hi : lo;
-  *id = take_hi ? ihi : ilo;
+  float m = __uint_as_float(b << 16);
+  uint32_t im = ids & 0xffffu;
+  const float hi = __uint_as_float(b & 0xffff0000u);
+  const uint32_t ihi = ids >> 16;
+  if (hi > m || (hi == m && ihi < im)) m = hi, im = ihi;
+  if (bs > m || (bs == m && is < im)) m = bs, im = is;
+  *best = m;
+  *id = im;
+}
+
+// class_max_row over the 1 << lane_shift lanes that share one row (lane j
+// of them), merged by shuffles: a later lane wins only when strictly
+// greater, or equal at a lower index. Every lane of the group gets the
+// result; every lane of the warp must call it.
+template <bool Rows16, typename T>
+__device__ __forceinline__ void class_max_lanes(const T* row, int j, int lane_shift, int nc,
+                                                float* best, uint32_t* id) {
+  float b;
+  uint32_t i;
+  class_max_row<Rows16>(row, j, 1 << lane_shift, nc, &b, &i);
+  for (int o = 1; o < (1 << lane_shift); o <<= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, b, o);
+    const uint32_t oid = __shfl_xor_sync(0xffffffffu, i, o);
+    if (ob > b || (ob == b && oid < i)) b = ob, i = oid;
+  }
+  *best = b;
+  *id = i;
 }
 
 // The max over the reg_max bins of one box side.
 template <typename T>
 __device__ __forceinline__ float side_max(const T* side, int reg_max, bool vec) {
   float m = __int_as_float(0xff800000);
-  visit(side, 0, 1, reg_max, vec, [&](int, float x) { m = fmaxf(m, x); });
+  visit(side, reg_max, vec, [&](int, float x) { m = fmaxf(m, x); });
   return m;
 }
 
@@ -527,11 +641,14 @@ __device__ __forceinline__ float side_max(const __nv_bfloat16* side, int reg_max
   return fmaxf(f.x, f.y);
 }
 
-// An anchor-major tile ([T, 4*reg_max] box rows, then [T, nc] class rows):
-// lanes 4i..4i+3 of a warp share anchor base + i; lane j works on box side
-// j and on the class units j, j + 4, ...; the quad's results meet by
-// shuffles.
-template <typename T>
+// An anchor-major tile ([T, 4*reg_max] box rows, then [T, nc] class rows).
+// With lane_shift 2, lanes 4i..4i+3 of a warp share anchor base + i: lane j
+// works on box side j and on the class units j, j + 4, ... . With more
+// lanes a class row (wide rows at 32-anchor tiles), the classes are taken
+// first, 1 << lane_shift lanes an anchor, and then the box sides by quads.
+// Rows16: the class rows are whole 16-byte vectors. Quads: lane_shift 2,
+// the classes and the box sides of an anchor in one straight-line pass.
+template <typename T, bool Rows16, bool Quads>
 __device__ void compute_rows(const Params& p, int tile, const unsigned char* stage) {
   const TileAt at = locate(p, tile);
   const Scale& sc = p.scale[at.scale];
@@ -540,23 +657,27 @@ __device__ void compute_rows(const Params& p, int tile, const unsigned char* sta
   const T* cls_s = box_s + (nb << p.tile_shift);
   const int n = min(p.tile, sc.hw - at.a0);
   const int lane = threadIdx.x & 31, j = lane & 3;
+  const int ls = p.lane_shift;
   const long long out0 = (long long)at.b * p.anchors + sc.out_off + at.a0;
+  if (!Quads) {
+    const int jl = lane & ((1 << ls) - 1);
+    for (int base = (threadIdx.x >> 5) << (5 - ls); base < n; base += kThreads >> ls) {
+      const int a = base + (lane >> ls);
+      const bool live = a < n;
+      float best;
+      uint32_t id;
+      class_max_lanes<Rows16>(cls_s + (live ? a : base) * p.nc, jl, ls, p.nc, &best, &id);
+      if (live && jl == 0) p.mx[out0 + a] = best, p.cid[out0 + a] = (int32_t)id;
+    }
+  }
   for (int base = (threadIdx.x >> 5) * 8; base < n; base += kThreads / 4) {
     const int a = base + (lane >> 2);
     const bool live = a < n;
     const int ar = live ? a : base;  // a lane past the tile's end reads a live row
 
-    // classes: the first index of the max; a later lane's class wins a tie
-    // only at a lower index
-    float best;
-    uint32_t id;
-    class_max_row(cls_s + ar * p.nc, j, p.nc, p.cls_vec, &best, &id);
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const uint32_t oid = __shfl_xor_sync(0xffffffffu, id, o);
-      if (ob > best || (ob == best && oid < id)) best = ob, id = oid;
-    }
+    float best = 0.f;
+    uint32_t id = 0;
+    if (Quads) class_max_lanes<Rows16>(cls_s + ar * p.nc, j, 2, p.nc, &best, &id);
 
     // box side j, shifted by the max over all 4*reg_max bins of the anchor
     const T* side = box_s + ar * nb + j * p.reg_max;
@@ -564,7 +685,7 @@ __device__ void compute_rows(const Params& p, int tile, const unsigned char* sta
     c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 1));
     c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, 2));
     float num = 0.f, den = 0.f, fk = 0.f;
-    visit(side, 0, 1, p.reg_max, p.box_vec, [&](int, float x) {
+    visit(side, p.reg_max, p.box_vec, [&](int, float x) {
       const float e = expf(fmaxf(x - c, -60.f));
       num += fk * e;
       den += e;
@@ -574,8 +695,8 @@ __device__ void compute_rows(const Params& p, int tile, const unsigned char* sta
     if (live) {
       const long long out = out0 + a;
       reinterpret_cast<float*>(p.ltrb)[out * 4 + j] = num / den;
-      if (j == 0) p.mx[out] = best;
-      if (j == 1) p.cid[out] = (int32_t)id;
+      if (Quads && j == 0) p.mx[out] = best;
+      if (Quads && j == 1) p.cid[out] = (int32_t)id;
     }
   }
 }
@@ -607,10 +728,17 @@ __global__ void __launch_bounds__(kThreads, 2) select_kernel(const __grid_consta
     }
     __syncthreads();  // the elements route's stores are visible too
     const int tile = first + i * step;
+    unsigned char* stage = smem + si * p.stage_bytes;
     if (p.scale[locate(p, tile).scale].box.route == kTma)
-      compute_tile<T>(p, tile, smem + si * p.stage_bytes, part);
+      compute_tile<T>(p, tile, stage, part);
+    else if (p.lane_shift == 2 && p.cls_rows16)
+      compute_rows<T, true, true>(p, tile, stage);
+    else if (p.lane_shift == 2)
+      compute_rows<T, false, true>(p, tile, stage);
+    else if (p.cls_rows16)
+      compute_rows<T, true, false>(p, tile, stage);
     else
-      compute_rows<T>(p, tile, smem + si * p.stage_bytes);
+      compute_rows<T, false, false>(p, tile, stage);
     // order this tile's generic-proxy accesses before the next asynchronous copy's writes
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
@@ -748,13 +876,14 @@ EncodeTiled encode_tiled() {
 }
 
 struct Plan {
-  int tile, tile_shift, stages, stage_bytes, smem_bytes;
+  int tile, tile_shift, stages, stage_bytes, smem_bytes, lane_shift;
 };
 
 // The largest tile (128, 64 or 32 anchors) whose ring of at least two stages
 // leaves room for two CTAs per SM; else the largest that fits one CTA; else
 // none, and the launch takes the wide route. ops/kernels/select.py:plan_fits
-// is the same rule in Python.
+// is the same rule in Python. Anchor-major tiles of 32 anchors give each
+// class row eight lanes (all 256 threads on one tile), larger tiles four.
 bool make_plan(int elem_bytes, int channels, Plan* plan) {
   const int extra = kBarrierBytes + (int)(elem_bytes == 4 ? sizeof(Partials<float>)
                                                           : sizeof(Partials<__nv_bfloat16>));
@@ -765,7 +894,8 @@ bool make_plan(int elem_bytes, int channels, Plan* plan) {
       if (2 * stage + extra > budget) continue;
       int stages = (budget - extra) / stage;
       stages = stages > 4 ? 4 : stages;
-      *plan = {1 << shift, shift, stages, stage, stages * stage + extra};
+      const int lane_shift = shift >= 6 ? 2 : 3;
+      *plan = {1 << shift, shift, stages, stage, stages * stage + extra, lane_shift};
       return true;
     }
   }
@@ -824,13 +954,15 @@ int pick_route(Map* m, int channels, int elem_bytes, long long hw, long long bat
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r == CUDA_SUCCESS) return kTma;
   }
-  if (m->sc == 1 && addr % 16 == 0 && m->shw > 0 && sb > 0 && (m->shw * es) % 16 == 0 &&
-      (sb * es) % 16 == 0 && (channels * es) % 16 == 0) {
-    if (m->shw == channels) {
+  if (m->sc == 1 && addr % 16 == 0 && sb > 0 && (sb * es) % 16 == 0) {
+    // packed rows: every tile's byte range is a 16-byte multiple where an
+    // image's HW rows are (a tile starts at a multiple of 32 rows)
+    if (m->shw == channels && (hw * channels * es) % 16 == 0) {
       m->packed = 1;
       return kBulk;
     }
-    if (channels <= 256 && encode) {
+    if (m->shw > 0 && (m->shw * es) % 16 == 0 && (channels * es) % 16 == 0 && channels <= 256 &&
+        encode) {
       const cuuint64_t dims[3] = {(cuuint64_t)channels, (cuuint64_t)hw, (cuuint64_t)batch};
       const cuuint64_t strides[2] = {(cuuint64_t)(m->shw * es), (cuuint64_t)(sb * es)};
       const cuuint32_t box[3] = {(cuuint32_t)channels, (cuuint32_t)tile, 1};
@@ -860,7 +992,7 @@ int launch(const Params& p, const Plan& plan, cudaStream_t stream) {
 }
 
 // The wide route's plan: tiles of 256 anchors, no ring, no shared memory.
-constexpr Plan kWidePlan = {1 << kWideShift, kWideShift, 0, 0, 0};
+constexpr Plan kWidePlan = {1 << kWideShift, kWideShift, 0, 0, 0, 5};
 
 template <typename T>
 cudaError_t fit_wide(int* per_sm, int* sms) {
@@ -876,8 +1008,9 @@ cudaError_t fit_wide(int* per_sm, int* sms) {
 
 // The launch plan for a dtype (0 = float32, 1 = bfloat16), class count and
 // reg_max: out = {anchors per tile, stages, dynamic shared bytes per CTA,
-// CTAs per SM, SMs, route} with route 0 for the ring of shared-memory stages
-// and 1 for the wide route (no stages). Returns a cudaError (0 on success).
+// CTAs per SM, SMs, route, lanes per class row} with route 0 for the ring
+// of shared-memory stages and 1 for the wide route (no stages; a warp a
+// class row). Returns a cudaError (0 on success).
 extern "C" int yolo_select_plan(int dtype, int nc, int reg_max, int32_t* out) {
   if ((dtype != 0 && dtype != 1) || nc < 1 || reg_max < 1) return (int)cudaErrorInvalidValue;
   Plan plan;
@@ -895,6 +1028,7 @@ extern "C" int yolo_select_plan(int dtype, int nc, int reg_max, int32_t* out) {
   out[3] = per_sm;
   out[4] = sms;
   out[5] = ring ? 0 : 1;
+  out[6] = 1 << plan.lane_shift;
   return (int)err;
 }
 
@@ -963,9 +1097,9 @@ extern "C" int yolo_select_launch(int dtype, int n_scales, const int64_t* desc, 
   p.tile_shift = plan.tile_shift;
   p.stages = plan.stages;
   p.stage_bytes = plan.stage_bytes;
-  const int vec = 16 / elem_bytes;  // elements in 16 bytes
-  p.box_vec = reg_max % vec == 0;
-  p.cls_vec = nc % vec == 0;
+  p.lane_shift = plan.lane_shift;
+  p.box_vec = reg_max % (16 / elem_bytes) == 0;
+  p.cls_rows16 = nc % (16 / elem_bytes) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch<float>(p, plan, st) : launch<__nv_bfloat16>(p, plan, st);
 }

@@ -24,18 +24,24 @@ counts kernel launches; ``select_scales.last_routes`` names the copy route
 the last launch took for each (box, cls) map, and ``expected_routes(pairs)``
 predicts it from the maps' strides, dtype and alignment:
 
-- ``bulk_rows``: channel stride 1, base, anchor and batch strides 16-byte
-  aligned, rows a multiple of 16 bytes. The main path's maps (the contiguous
-  NHWC head outputs of ``entry_layouts="auto"``) take it: each tile of
-  anchors arrives anchor-major by one asynchronous bulk copy per map (a 1-D
-  copy of packed rows, or a 3-D tensor map for the strided rows of an
-  unsplit map's slices).
+- ``bulk_rows``: channel stride 1, base and batch stride 16-byte aligned,
+  and either packed rows (anchor stride = channels) whose image of HW rows
+  is a multiple of 16 bytes, whatever the row width, or strided rows (an
+  unsplit map's slices) of 16-byte rows and anchor stride and at most 256
+  channels. The main path's maps (the contiguous NHWC head outputs of
+  ``entry_layouts="auto"``) take it at every class count at 640x640 (HW
+  6400 / 1600 / 400), in bf16 and f32: each tile of anchors arrives
+  anchor-major by one asynchronous bulk copy per map (a 1-D copy of the
+  tile's packed rows, or a 3-D tensor map for strided rows). A packed map
+  whose image is not a 16-byte multiple (nc 3 at HW 25: 150 bytes in bf16,
+  300 in f32) stays on ``elements``; no tail is copied by threads.
 - ``tma``: anchor stride 1 (the NCHW permute views of
   ``entry_layouts="default"``), aligned channel and batch strides, at most
   256 channels; one tensor-map copy per map and tile, channel-major.
-- ``elements``: any other map (HW 49 in NCHW, 6- or 134-byte rows, an
-  unaligned base), copied element by element; also the TMA-able map of a
-  scale whose other map takes no TMA.
+- ``elements``: any other map (an unaligned base, HW 49 in NCHW, 134-byte
+  unsplit rows, the images above), copied by all threads with consecutive
+  threads along the map's unit stride; also the TMA-able map of a scale
+  whose other map takes no TMA.
 - ``wide``: every map of a launch whose tiles do not fit shared memory
   (``plan_fits`` is False): no ring of stages, each anchor's rows read
   straight from device memory (a warp an anchor's class row, or a thread
@@ -44,9 +50,13 @@ predicts it from the maps' strides, dtype and alignment:
 Which class counts take which: the three routes above stage tiles of 32 to
 128 anchors in a ring of at least two stages of ``4 * reg_max + nc``
 channels within the 227 KB of shared memory one CTA may use. At reg_max 16
-that holds up to nc = 826 in f32 and nc = 1,730 in bf16 (COCO's 80 classes
-in either); above it (LVIS's 1,203 in f32, or any count up to 2**31 - 1)
-the launch takes ``wide``. Any nc >= 1 is served. The JAX TPU kernel's own
+that holds up to nc = 826 in f32 and nc = 1,730 in bf16 (COCO's 80, the
+fine-tune config's 10, VOC's 20 and LVIS's 1,203 classes in bf16); above it
+(LVIS's 1,203 in f32, or any count up to 2**31 - 1) the launch takes
+``wide``. Any nc >= 1 is served. On staged anchor-major tiles each class row
+is walked in a scalar head up to its first 16-byte boundary, 16-byte
+vectors and a scalar tail, by four lanes an anchor at tiles of 64 and 128
+anchors and eight at 32 (``plan``'s ``lanes``). The JAX TPU kernel's own
 limits (HW a multiple of 16, nc <= 255, its VMEM budget) are not this
 kernel's.
 """
@@ -140,14 +150,15 @@ def _load():
 def plan(dtype: torch.dtype, nc: int, reg_max: int = 16) -> dict:
     """The kernel's launch plan on the current card for a dtype and class
     count: anchors per tile, ring stages, dynamic shared bytes per CTA,
-    CTAs per SM, SMs and ``route``: ``"ring"`` (tiles staged in shared
-    memory) or ``"wide"`` (no stages; see ``plan_fits``)."""
-    out = (ctypes.c_int32 * 6)()
+    CTAs per SM, SMs, ``route``: ``"ring"`` (tiles staged in shared
+    memory) or ``"wide"`` (no stages; see ``plan_fits``), and ``lanes``, the
+    threads that share one anchor's class row."""
+    out = (ctypes.c_int32 * 7)()
     err = _load().yolo_select_plan(_DTYPE_CODE[dtype], nc, reg_max, out)
     if err != 0:
         raise RuntimeError(f"select plan failed: cudaError {err}")
     keys = ("tile", "stages", "smem_bytes", "ctas_per_sm", "sms")
-    return {**dict(zip(keys, out)), "route": ("ring", "wide")[out[5]]}
+    return {**dict(zip(keys, out)), "route": ("ring", "wide")[out[5]], "lanes": out[6]}
 
 
 def plan_fits(dtype: torch.dtype, nc: int, reg_max: int = 16) -> bool:
@@ -200,10 +211,11 @@ def _map_route(t: torch.Tensor, hw: int, batch: int) -> str:
     if (shw == 1 and channels <= 256 and aligned and sc > 0 and sb > 0
             and sc * es % 16 == 0 and sb * es % 16 == 0):
         return "tma"
-    if (sc == 1 and aligned and shw > 0 and sb > 0 and shw * es % 16 == 0
-            and sb * es % 16 == 0 and channels * es % 16 == 0
-            and (shw == channels or channels <= 256)):
-        return "bulk_rows"
+    if sc == 1 and aligned and sb > 0 and sb * es % 16 == 0:
+        if shw == channels and hw * channels * es % 16 == 0:  # packed: one byte range a tile
+            return "bulk_rows"
+        if shw > 0 and shw * es % 16 == 0 and channels * es % 16 == 0 and channels <= 256:
+            return "bulk_rows"
     return "elements"
 
 
