@@ -6,10 +6,13 @@ Needs one CUDA card and nvcc (sm_90a); it exits non-zero on the first phase
 that fails, and without a card. Phases, each printing one line:
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` names it;
-2. build: compiles ``yolo_ms_tpu_torch/csrc/select.cu`` into the ignored
-   ``yolo_ms_tpu_torch/build/`` directory and prints its registers and its
-   launch plan (ring or wide route, anchors per tile, ring stages, shared
-   memory, CTAs per SM, lanes a class row) at nc 80, 3, 10 and 1,203;
+2. build: compiles ``yolo_ms_tpu_torch/csrc/select.cu`` and
+   ``csrc/nms.cu`` (two nvcc processes at once) into the ignored
+   ``yolo_ms_tpu_torch/build/`` directory and prints their registers and
+   launch plans (select: ring or wide route, anchors per tile, ring stages,
+   shared memory, CTAs per SM, lanes a class row at nc 80, 3, 10 and 1,203;
+   nms: shared or global route and shared memory at K 525, 1,024, 1,288,
+   1,289 and 4,096);
 3. the one-launch ``select_scales`` against ``select_scales_plain`` on the
    card, at the serving scales (batch 32; HW 6400 / 1600 / 400) and at ragged
    and misaligned ones (HW 400 / 49 / 25); nc 80, 3, 10 and 1,203; f32 and bf16; split
@@ -18,20 +21,30 @@ that fails, and without a card. Phases, each printing one line:
    1e-4 (bf16); each launch's copy routes equal to ``expected_routes`` (the
    route rule in Python); each layout's routes and, at the serving scales,
    its time per batch (L2 flushed) beside its bound, and the plain
-   version's time on the split maps; then the card-only tests of
-   ``tests/test_torch_cuda.py`` in a child pytest;
+   version's time on the split maps;
+   b. the NMS kernel against ``nms_fixed_plain`` (keep and sweeps per
+      image exactly equal; ``phase_nms_vs_plain``): the flagship's shape
+      and K 4,096 (the global route), each timed beside its bound and the
+      plain loop, a 1,024-box chain, a row of no valid box, one image, and
+      IoUs exactly at the threshold;
+   then the card-only tests of ``tests/test_torch_cuda.py`` in a child
+   pytest;
 4. the two trained golden fixtures through ``Predictor(device="cuda")`` in
    f32 (TF32 off) in both entry layouts, ``entry_layouts="auto"``
    (channels-last, the default) and ``"default"`` (NCHW), matched against
-   their checked-in detections, and the card's raw maps on the same image
-   held against the CPU's (atol 1e-4);
+   their checked-in detections, every NMS launch (K 525) held against the
+   plain version, and the card's raw maps on the same image held against
+   the CPU's (atol 1e-4);
 5. full-width serving: yolo-ms-xs and yolov8-n, nc=80, 640x640, bf16,
    batch 32, weights from seeded numpy through the converter, BN-folded,
    served through ``Predictor(entry_layouts="auto")`` (the main path) and
    ``"default"`` in turns on the same 8 batches, twice: the first pass
    holds every ``select`` launch against ``select_scales_plain`` on the same
    maps and its copy routes against ``expected_routes``, and under auto
-   every map must take the bulk-rows route; the second is timed; ``select.launches`` must rise by 1 per batch;
+   every map must take the bulk-rows route, and every ``nms`` launch against
+   ``nms_fixed_plain`` on the boxes it served, at conf 1e-5 and with the
+   scores gated at 0.25 (keep and sweeps exact); the second is timed;
+   ``select.launches`` and ``nms.launches`` must rise by 1 per batch;
    outputs are checked; auto's raw maps must lie within 2e-2 (max |diff| /
    max |default|) of default's and be contiguous NHWC; the kernel tail is
    held against the plain tail on the same f32 maps; per layout the batch
@@ -46,16 +59,19 @@ that fails, and without a card. Phases, each printing one line:
    unflushed (as the main path finds the maps after the head convs), each
    behind a spin kernel so that the host's enqueue time is not counted, and
    on each scale alone; the host's time to enqueue one call is measured
-   apart. Each time stands beside its bound (bytes over the memory rate
-   against operations over the f32 rate of the card that ``nvidia-smi``
-   names);
+   apart. The NMS kernel is timed on auto's last served input beside the
+   plain loop, and the post-process and ``infer`` again with the plain
+   NMS loop in the same turns. Each time stands beside its bound (bytes
+   over the memory rate against operations over the f32 rate of the card
+   that ``nvidia-smi`` names);
    b. LVIS v1's class count: yolo-ms-xs with nc = 1,203, bs 32, 640²,
       seeded weights, BN-folded, conf 1e-5, through
       ``Predictor(entry_layouts="auto")`` in bf16 (its tiles fit a ring:
       bulk rows on every map) and then in f32 with TF32 off (they do not:
       ``select``'s wide route), 4 batches checked and 4 timed each: every
       launch equal to the plain version on the maps it served, its routes
-      those of ``expected_routes`` and bulk rows (or wide) on every map;
+      those of ``expected_routes`` and bulk rows (or wide) on every map,
+      every ``nms`` launch as in phase 5;
       the kernel tail equal to the plain tail; ms per batch and
       ``select``'s time (L2 flushed by a write) beside its bound and the
       plain version's;
@@ -235,10 +251,12 @@ phases 1 and 2, at nc 80 and on 5c's and 5b's bf16 maps; ``--variants``
 ``SELECT_VARIANTS`` (the copies alone, with no compute; the wide route at
 every class count from 256 to 1,730 in bf16; 16 or 32 lanes a class row;
 three CTAs an SM; no class walk; no exp in the box sums) against the
-kernel as built.
+kernel as built, and those of ``nms.cu`` in ``NMS_VARIANTS`` (no skip of
+the quotient, whole rows dealt to threads, both, the overlap bits alone).
 
-The kernel JSON counts ``select`` launches on every path
-(``launches_by_path``): the serving run of phase 5 (both layouts, both
+The kernel JSON lists ``select`` and ``nms``. It counts their launches on
+every path (``launches_by_path``; each path's count is checked equal for
+the two kernels, since every post-process launches each once): the serving run of phase 5 (both layouts, both
 passes), the training run of
 phase 6c, phase 7's ``tools.test``, ``tools.val`` and ``predict_video``
 runs, phase 8b's data-parallel validation (``train_dp_validate``, both
@@ -296,8 +314,11 @@ from yolo_ms_tpu_torch.ops.kernels.select import (
     select_scales,
     select_scales_plain,
 )
+from yolo_ms_tpu_torch.ops import nms as nms_ops
 from yolo_ms_tpu_torch.ops import postprocess as postprocess_mod
-from yolo_ms_tpu_torch.ops.nms import nms_fixed
+from yolo_ms_tpu_torch.ops.kernels import nms as nms_mod
+from yolo_ms_tpu_torch.ops.kernels.nms import nms, nms_fixed_plain
+from yolo_ms_tpu_torch.ops.nms import CLASS_OFFSET, nms_fixed
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.parallel.distributed import (
     all_reduce_sum,
@@ -400,6 +421,28 @@ def bound_of(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a counted path."""
+    select.launches = 0
+    nms.launches = 0
+
+
+def counts() -> tuple[int, int]:
+    """The (select, nms) launch counts now, to difference later."""
+    return select.launches, nms.launches
+
+
+def launched(label: str, since: tuple[int, int] = (0, 0)) -> int:
+    """The ``select`` launches since ``since`` (``counts()`` taken before;
+    (0, 0) after ``zero_counts``), once the NMS kernel is found to have
+    launched as often: every post-process call launches each kernel once,
+    so each path's count is both kernels'."""
+    sel, nm = select.launches - since[0], nms.launches - since[1]
+    if sel != nm:
+        raise AssertionError(f"{label}: select launched {sel} times but nms {nm}")
+    return sel
+
+
 def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None, clean: bool = False,
             cover: bool = False) -> float:
     """Median device time of one call of ``fn`` (CUDA events around each
@@ -439,6 +482,104 @@ def host_us(fn, reps: int = 200) -> float:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+# f32 operations of the NMS fixed point: per pair j < i of valid boxes (four
+# max / min, two widths, two clamps and the product of the intersection, the
+# two adds and a subtract of the union, the quotient, the compare), per valid
+# box (its area: two widths and a product), and per overlap word of a valid
+# row in a sweep (an AND and a test)
+NMS_PAIR_OPS, NMS_BOX_OPS, NMS_WORD_OPS = 14, 3, 2
+NMS_IOU = 0.45  # the serving tail's IoU threshold
+NMS_PLAN_K = (525, 1024, 1288, 1289, 4096)  # the goldens', the main path's, the routes' edge
+
+
+def nms_bound(scores: torch.Tensor, sweeps: list, name: str) -> tuple[float, float]:
+    """The two least times (ms) the card could take for one NMS call over
+    boxes [B, K, 4] and scores [B, K] that ran ``sweeps`` per image: 16 B
+    of box and 4 B of score read and 1 B of keep written per box, 4 B of
+    sweeps per image, over the memory rate; and the operations these inputs
+    need (``NMS_*_OPS``, over the valid boxes of each image only: an invalid
+    box suppresses nothing and is never kept) over the f32 rate."""
+    mem_rate, f32_rate = peak_rates(name)
+    b, k = scores.shape
+    ops = 0
+    for v, n_sweeps in zip((scores > 0).sum(dim=1).tolist(), sweeps):
+        words = sum(-(-i // 32) for i in range(v))
+        ops += v * (v - 1) // 2 * NMS_PAIR_OPS + v * NMS_BOX_OPS + n_sweeps * words * NMS_WORD_OPS
+    return b * (21 * k + 4) / mem_rate * 1e3, ops / f32_rate * 1e3
+
+
+NMS_CHECKS = {"launches": 0, "err": 0}  # launches held against the plain version, worst error
+
+
+def check_nms(boxes, scores, iou, label, got=None) -> list:
+    """The kernel's (keep, sweeps) on these inputs (``got``, or one launch
+    now) against ``nms_fixed_plain``'s on the same inputs: both exactly
+    equal. Returns the sweeps per image."""
+    keep, sweeps = nms(boxes, scores, iou) if got is None else got
+    want_keep, want_sweeps = nms_fixed_plain(boxes, scores, iou)
+    torch.cuda.synchronize()
+    err = max(int((keep.int() - want_keep.int()).abs().max()),
+              int((sweeps - want_sweeps).abs().max())) if keep.numel() else 0
+    NMS_CHECKS["launches"] += 1
+    NMS_CHECKS["err"] = max(NMS_CHECKS["err"], err)
+    if not (torch.equal(keep, want_keep) and torch.equal(sweeps, want_sweeps)):
+        raise AssertionError(f"{label}: nms keeps {(keep != want_keep).sum().item()} boxes "
+                             f"otherwise than the plain version; sweeps {sweeps.tolist()} "
+                             f"against {want_sweeps.tolist()}")
+    return sweeps.tolist()
+
+
+class NmsSpy:
+    """While ``on``: every NMS call of the post-process (one kernel launch)
+    is held against ``nms_fixed_plain`` on the same boxes and scores
+    (``check_nms``), and again with the scores gated at conf 0.25 (what the
+    tail would give it at that threshold; a comparison launch, taken back
+    out of the count). Each call's max sweeps are kept under ``label``, and
+    the last call's inputs too. The plain version launches no kernel."""
+
+    def __init__(self):
+        self.label = None
+        self.sweeps = {}
+        self.inputs = {}
+
+    @contextlib.contextmanager
+    def on(self):
+        real = nms_ops.nms_kernel
+
+        def spy(boxes, scores, iou):
+            before = nms.launches
+            got = real(boxes, scores, iou)
+            if nms.launches != before + 1:
+                raise AssertionError(f"{self.label}: an nms call launched "
+                                     f"{nms.launches - before} kernels")
+            sweeps = check_nms(boxes, scores, iou, f"{self.label} served boxes", got)
+            check_nms(boxes, torch.where(scores > 0.25, scores, -1.0), iou,
+                      f"{self.label} served boxes at conf 0.25")
+            nms.launches = before + 1
+            self.sweeps.setdefault(self.label, []).append(max(sweeps, default=0))
+            self.inputs[self.label] = (boxes, scores, iou)
+            return got
+
+        nms_ops.nms_kernel = spy
+        try:
+            yield self
+        finally:
+            nms_ops.nms_kernel = real
+
+
+@contextlib.contextmanager
+def plain_nms():
+    """Every post-process inside runs the NMS fixed point's plain version
+    (one host read per sweep) in place of the kernel: the tail that the
+    kernel replaced, for comparisons within one call."""
+    real = nms_ops.nms_kernel
+    nms_ops.nms_kernel = nms_fixed_plain
+    try:
+        yield
+    finally:
+        nms_ops.nms_kernel = real
 
 
 # ---------------------------------------------------------------- phase 3
@@ -549,6 +690,86 @@ def phase_kernel_vs_plain(flush: torch.Tensor, name: str) -> float:
     return worst
 
 
+def _nms_random(b: int, k: int, seed: int, span: float = 640.0, pad: int = 0,
+                classes: int = 80):
+    """Seeded boxes [b, k, 4] xyxy, each shifted by one of ``classes``
+    classes as the serving tail shifts them, and descending scores [b, k]
+    with the last ``pad`` rows invalid, on the card."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, span, (b, k, 2))
+    sizes = rng.uniform(8, 60, (b, k, 2))
+    boxes = np.concatenate([centers - sizes / 2, centers + sizes / 2], -1)
+    boxes += rng.integers(0, classes, (b, k, 1)) * CLASS_OFFSET
+    scores = np.sort(rng.uniform(0.05, 1.0, (b, k)), axis=1)[:, ::-1].copy()
+    if pad:
+        scores[:, -pad:] = -1.0
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(scores.astype(np.float32)).cuda())
+
+
+def _nms_chain(n: int, iou: float = NMS_IOU, width: float = 20.0):
+    """n boxes in a row, each overlapping the next above ``iou`` and the one
+    after that below it: greedy keeps every other box, and the fixed point
+    settles one link per sweep (n sweeps in all)."""
+    r = (1.0 - iou) / (1.0 + iou)
+    x = np.arange(n) * 0.75 * r * width
+    boxes = np.stack([x, np.zeros(n), x + width, np.full(n, 10.0)], -1)
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.linspace(1.0, 0.5, n, device="cuda"))
+
+
+def phase_nms_vs_plain(name: str) -> None:
+    """3b: the NMS kernel against ``nms_fixed_plain`` on the card, keep and
+    sweeps per image exactly equal, at IoU 0.45: the flagship's shape (bs
+    32, K 1,024, 8 classes shifted by 8192, 100 invalid rows) and K 4,096
+    (the global-scratch route), each timed beside its bound and the plain
+    version; a 1,024-box chain (1,023 links, 1,024 sweeps), a row of no
+    valid box, one image; then IoUs of exactly 0.5 and of the f32 nearest
+    0.3 at those thresholds and a hair below them."""
+    chain_b, chain_s = _nms_random(2, 1024, 2)
+    chain_b[0], chain_s[0] = _nms_chain(1024)
+    invalid_b, invalid_s = _nms_random(3, 300, 3, span=300.0, classes=3)
+    invalid_s[1] = -1.0
+    cases = [
+        (f"bs {BATCH} K 1024, 8 classes", *_nms_random(BATCH, 1024, 0, span=320.0, pad=100,
+                                                        classes=8), True),
+        ("bs 2 K 4096, 4 classes", *_nms_random(2, 4096, 1, pad=300, classes=4), True),
+        ("a 1,024-box chain beside a random image", chain_b, chain_s, False),
+        ("bs 3 K 300, row 1 all invalid", invalid_b, invalid_s, False),
+        ("bs 1 K 1024, 3 classes", *_nms_random(1, 1024, 4, span=300.0, pad=7, classes=3), False),
+    ]
+    for label, boxes, scores, timed in cases:
+        n = nms.launches
+        sweeps = check_nms(boxes, scores, NMS_IOU, f"3b {label}")
+        route = nms.last_route
+        if nms.launches != n + 1 or route != nms_mod.route(boxes.shape[1]):
+            raise AssertionError(f"3b {label}: {nms.launches - n} launches on route {route}")
+        line = (f"phase 3b nms {label}: keep and sweeps equal to the plain version, route "
+                f"{route}, sweeps per image {min(sweeps)}-{max(sweeps)}")
+        if timed:
+            ms = cuda_ms(lambda: nms(boxes, scores, NMS_IOU), 20, cover=True)
+            plain = cuda_ms(lambda: nms_fixed_plain(boxes, scores, NMS_IOU), 3)
+            bound_ms, bound_by = bound_of(*nms_bound(scores, sweeps, name))
+            line += (f"; {ms * 1e3:.1f} us (bound {bound_ms * 1e3:.2f} us by {bound_by}, "
+                     f"{bound_ms / ms * 100:.1f} % of it), plain {plain:.3f} ms")
+        print(line)
+    # [0, 0, 10, 10] against [0, 0, 10, 5]: IoU 0.5; [20, 0, 30, 10] against
+    # [20, 0, 30, 3]: 30 / 100, the f32 nearest 0.3 (0.3 rounds up in f32)
+    boxes = torch.tensor([[[0, 0, 10, 10], [0, 0, 10, 5], [20, 0, 30, 10], [20, 0, 30, 3]]],
+                         dtype=torch.float32, device="cuda")
+    scores = torch.tensor([[0.9, 0.8, 0.7, 0.6]], device="cuda")
+    below = {t: float(np.nextafter(np.float32(t), np.float32(0))) for t in (0.5, 0.3)}
+    want = {0.5: [1, 1, 1, 1], below[0.5]: [1, 0, 1, 1], 0.3: [1, 0, 1, 1],
+            below[0.3]: [1, 0, 1, 0]}
+    for iou, keep in want.items():
+        check_nms(boxes, scores, iou, f"3b IoU at {iou!r}")
+        got = nms(boxes, scores, iou)[0][0].int().tolist()
+        if got != keep:
+            raise AssertionError(f"3b IoU at {iou!r}: keep {got}, expected {keep}")
+    print(f"phase 3b nms IoUs exactly at the threshold (0.5; the f32 nearest 0.3) and a hair "
+          f"below: keep equal to the plain version and to {list(want.values())}")
+
+
 def phase_cuda_tests() -> None:
     """The card-only tests (``cuda`` marker) in a child pytest; it imports no
     JAX, so it runs without the repo's conftest."""
@@ -603,7 +824,9 @@ def phase_goldens() -> None:
     each entry layout, ``auto`` (channels-last, the default) and
     ``default`` (NCHW), matched against their checked-in detections; then
     the card's raw maps on the same decoded image against the CPU's (NCHW),
-    within MAPS_ATOL."""
+    within MAPS_ATOL. Each NMS launch (K 525, the 160 px anchors) is held
+    against the plain version (``NmsSpy``)."""
+    nspy = NmsSpy()
     for arch, gdir in GOLDENS:
         state_dict = load_npz(os.path.join(gdir, "weights.npz"))
         fixture = os.path.join(gdir, "fixture_000.png")
@@ -629,7 +852,8 @@ def phase_goldens() -> None:
             if predictor.serve.memory_format != LAYOUT_FORMATS[layout]:
                 raise AssertionError(f"4 {arch} {layout}: the network runs in "
                                      f"{predictor.serve.memory_format}")
-            with tempfile.TemporaryDirectory() as out_dir:
+            nspy.label = f"4 {arch} {layout}"
+            with tempfile.TemporaryDirectory() as out_dir, nspy.on():
                 results = predictor.predict_paths(fixture, out_dir, verbose=False)
                 if not os.path.exists(os.path.join(out_dir, "fixture_000_detected.jpg")):
                     raise AssertionError("drawn fixture missing")
@@ -653,7 +877,9 @@ def phase_goldens() -> None:
             print(f"phase 4 golden {arch} entry_layouts={layout} "
                   f"({memory_format_name(predictor.serve.memory_format)}): {len(got)} "
                   f"detections match "
-                  f"(scores {[d['score'] for d in got]}, decoded by {decoder}); "
+                  f"(scores {[d['score'] for d in got]}, decoded by {decoder}); NMS at K "
+                  f"{nspy.inputs[nspy.label][0].shape[1]} equal to the plain version at conf "
+                  f"0.25 ({nspy.sweeps[nspy.label]} sweeps); "
                   f"raw maps card vs CPU max abs err {err:.3e} with TF32 off, "
                   f"{max_err(card_default):.3e} at the default conv precision "
                   f"({torch.backends.cudnn.conv.fp32_precision})")
@@ -858,26 +1084,31 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     # The first pass holds every select launch against the plain version on
     # the same maps; the second is timed. Each batch is served by both
     # layouts in turns (the order flips from batch to batch).
-    select.launches = 0
+    zero_counts()
     nms_fixed.sweeps = 0
     spy = SelectSpy(only={"auto": MAIN_PATH_ROUTE})
+    nspy = NmsSpy()
     host_ms = {layout: [] for layout in ENTRY_LAYOUTS}
     launches = dict.fromkeys(ENTRY_LAYOUTS, 0)
     for checked in (True, False):
-        with spy.on() if checked else contextlib.nullcontext():
+        with contextlib.ExitStack() as spies:
+            if checked:
+                spies.enter_context(spy.on())
+                spies.enter_context(nspy.on())
             for i, imgs in enumerate(batches):
                 for layout in ENTRY_LAYOUTS[:: 1 if i % 2 == 0 else -1]:
-                    spy.layout, n = layout, select.launches
+                    spy.layout = nspy.label = layout
+                    n = counts()
                     t0 = time.perf_counter()
                     out = predictors[layout].predict_batch(imgs)
                     if not checked:
                         host_ms[layout].append((time.perf_counter() - t0) * 1e3)
-                    if select.launches != n + 1:
-                        raise AssertionError(f"{arch} {layout}: {select.launches - n} select "
+                    if launched(f"{arch} {layout}", n) != 1:
+                        raise AssertionError(f"{arch} {layout}: {select.launches - n[0]} select "
                                              f"launches in one batch")
                     launches[layout] += 1
                     check_outputs(out, f"{arch} {layout}")
-    total, sweeps = select.launches, nms_fixed.sweeps
+    total, sweeps = launched(arch), int(nms_fixed.sweeps)
     if total != 2 * len(ENTRY_LAYOUTS) * SERVE_BATCHES:
         raise AssertionError(f"{arch}: select launched {total} times in "
                              f"{2 * len(ENTRY_LAYOUTS) * SERVE_BATCHES} batches")
@@ -906,14 +1137,21 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
         tail_err = check_tail(maps["auto"], NC, arch)
 
         # where the batch time goes (device time, CUDA events), each layout
-        # in turns: auto, default, default, auto
-        parts = {layout: {"fwd_ms": [], "post_ms": [], "infer_ms": []} for layout in ENTRY_LAYOUTS}
+        # in turns: auto, default, default, auto; the tail and infer also
+        # with the plain NMS loop (the tail the kernel replaced)
+        parts = {layout: {key: [] for key in ("fwd_ms", "post_ms", "infer_ms", "post_plain_ms",
+                                              "infer_plain_ms")}
+                 for layout in ENTRY_LAYOUTS}
         for layout in ENTRY_LAYOUTS + ENTRY_LAYOUTS[::-1]:
             p, part = predictors[layout], parts[layout]
             part["fwd_ms"].append(cuda_ms(
                 lambda: p.model(p.serve.network_input(x_u8), split_head=True), 5))
             part["post_ms"].append(cuda_ms(lambda: fused_postprocess(maps[layout], NC, **kw), 5))
             part["infer_ms"].append(cuda_ms(lambda: p.infer(x_u8), 5))
+            with plain_nms():
+                part["post_plain_ms"].append(
+                    cuda_ms(lambda: fused_postprocess(maps[layout], NC, **kw), 5))
+                part["infer_plain_ms"].append(cuda_ms(lambda: p.infer(x_u8), 5))
         profiles = {layout: forward_kernels(
             lambda: p.model(p.serve.network_input(x_u8), split_head=True))
             for layout, p in predictors.items()}
@@ -951,12 +1189,24 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
                         "bytes_ms": bytes_ms,
                         "ops_ms": ops_ms,
                     })
+        # the NMS kernel on the main path's last input (auto's last batch)
+        nb, ns, niou = nspy.inputs["auto"]
+        n_sweeps = check_nms(nb, ns, niou, f"{arch} auto nms")
+        bytes_ms, ops_ms = nms_bound(ns, n_sweeps, name)
+        nms_t = {"ms": cuda_ms(lambda: nms(nb, ns, niou), 20, cover=True),
+                 "plain_ms": cuda_ms(lambda: nms_fixed_plain(nb, ns, niou), 5),
+                 "host_us": host_us(lambda: nms(nb, ns, niou)), "bytes_ms": bytes_ms,
+                 "ops_ms": ops_ms, "sweeps": max(n_sweeps), "k": nb.shape[1],
+                 "route": nms.last_route, "valid": int((ns > 0).sum())}
     h2d_ms = cuda_ms(lambda: torch.from_numpy(batches[0]).to("cuda"), 5)
     layouts = {
         layout: {"host_ms": statistics.median(host_ms[layout]),
                  "fwd_ms": statistics.median(parts[layout]["fwd_ms"]),
                  "post_ms": statistics.median(parts[layout]["post_ms"]),
                  "infer_ms": statistics.median(parts[layout]["infer_ms"]),
+                 "post_plain_ms": statistics.median(parts[layout]["post_plain_ms"]),
+                 "infer_plain_ms": statistics.median(parts[layout]["infer_plain_ms"]),
+                 "nms_sweeps": nspy.sweeps[layout],
                  "parts": parts[layout], "launches": launches[layout],
                  "checked_routes": checked_routes[layout], "kernels": profiles[layout],
                  "select": sel[layout]}
@@ -968,6 +1218,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
         "img_s": BATCH / auto["host_ms"] * 1e3, "fwd_ms": auto["fwd_ms"],
         "post_ms": auto["post_ms"], "infer_ms": auto["infer_ms"], "h2d_ms": h2d_ms,
         "select": sel["auto"], "scales": scales, "tail_err": tail_err, "maps_rel": maps_rel,
+        "nms": nms_t,
         "checked_err": checked_err, "audit": audit, "layouts": layouts,
         "conv_costs": conv_costs,
         "predictor": predictors["auto"], "state_dict": state_dict,
@@ -1010,9 +1261,10 @@ def serve_classes(arch: str, nc: int, phase: str, flush: torch.Tensor, name: str
     ``select_scales_plain`` on the maps it served and its routes against
     ``expected_routes`` and, on every map, bulk rows where a ring fits
     (``plan_fits``) and the wide route where none does; the second is
-    timed. Then the kernel tail against the plain tail, and ``select`` on
-    one batch's maps with L2 flushed by a write beside its bound and the
-    plain version; one line per dtype."""
+    timed; every NMS launch of the first is held against the plain version
+    (``NmsSpy``). Then the kernel tail against the plain tail, and
+    ``select`` on one batch's maps with L2 flushed by a write beside its
+    bound and the plain version; one line per dtype."""
     state_dict = seeded_state_dict(arch, nc, seed=1)
     batches = serve_batches()[:WIDE_BATCHES]
     runs = {}
@@ -1024,22 +1276,26 @@ def serve_classes(arch: str, nc: int, phase: str, flush: torch.Tensor, name: str
         predictor.predict_batch(batches[0])  # warm-up
         only = MAIN_PATH_ROUTE if select_mod.plan_fits(dtype, nc, REG_MAX) else "wide"
         spy = SelectSpy(only={label: only})
-        spy.layout = label
+        nspy = NmsSpy()
+        spy.layout = nspy.label = label
         host_ms = []
-        select.launches = 0
+        zero_counts()
         for checked in (True, False):
-            with spy.on() if checked else contextlib.nullcontext():
+            with contextlib.ExitStack() as spies:
+                if checked:
+                    spies.enter_context(spy.on())
+                    spies.enter_context(nspy.on())
                 for imgs in batches:
-                    n = select.launches
+                    n = counts()
                     t0 = time.perf_counter()
                     out = predictor.predict_batch(imgs)
                     if not checked:
                         host_ms.append((time.perf_counter() - t0) * 1e3)
-                    if select.launches != n + 1:
-                        raise AssertionError(f"{label}: {select.launches - n} select launches "
+                    if launched(label, n) != 1:
+                        raise AssertionError(f"{label}: {select.launches - n[0]} select launches "
                                              f"in one batch")
                     check_outputs(out, label, nc)
-        launches = select.launches
+        launches = launched(label)
         if launches != 2 * WIDE_BATCHES:
             raise AssertionError(f"{label}: select launched {launches} times in "
                                  f"{2 * WIDE_BATCHES} batches")
@@ -1057,6 +1313,7 @@ def serve_classes(arch: str, nc: int, phase: str, flush: torch.Tensor, name: str
                 "host_ms": statistics.median(host_ms), "launches": launches,
                 "checked_routes": sorted({_route_names(r) for r, _ in spy.calls[label]}),
                 "checked_err": max(e for _, e in spy.calls[label]), "tail_err": tail_err,
+                "nms_sweeps": nspy.sweeps[label],
                 "err": err, "routes": routes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                 "ms": cuda_ms(lambda: select_scales(pairs, REG_MAX), 20, flush, cover=True),
                 "plain_ms": cuda_ms(lambda: select_scales_plain(pairs, REG_MAX), 5, flush,
@@ -1068,9 +1325,11 @@ def serve_classes(arch: str, nc: int, phase: str, flush: torch.Tensor, name: str
         print(f"phase {phase} serve {arch} nc={nc} bs={BATCH} {IMG}px {dt}"
               f"{' (TF32 off)' if dt == 'float32' else ''} entry_layouts=auto: "
               f"{w['host_ms']:.3f} ms/batch predict_batch (host clock, median of "
-              f"{WIDE_BATCHES}), {BATCH / w['host_ms'] * 1e3:.1f} img/s; select launches "
-              f"{w['launches']} in {2 * WIDE_BATCHES} batches, each equal to the plain version "
-              f"(worst ltrb err {w['checked_err']:.3e}), routes {', '.join(w['checked_routes'])}; "
+              f"{WIDE_BATCHES}), {BATCH / w['host_ms'] * 1e3:.1f} img/s; select and nms launches "
+              f"{w['launches']} each in {2 * WIDE_BATCHES} batches, each equal to the plain version "
+              f"(worst ltrb err {w['checked_err']:.3e}; NMS sweeps per checked batch "
+              f"{w['nms_sweeps']}, keep and sweeps exact at conf 1e-5 and 0.25), routes "
+              f"{', '.join(w['checked_routes'])}; "
               f"kernel-vs-plain tail box err {w['tail_err']:.3e}; select on one batch's maps "
               f"{w['ms'] * 1e3:.1f} us with L2 flushed by a write (bound {bound_ms * 1e3:.1f} us "
               f"by {bound_by}, {bound_ms / w['ms'] * 100:.0f} % of it; routes "
@@ -1098,7 +1357,11 @@ def print_serving(r: dict) -> None:
             f"device (CUDA events, median of 2, in turns): infer {lr['infer_ms']:.3f} ms "
             f"({_ms_pair(lr['parts']['infer_ms'])}) = normalize+forward {lr['fwd_ms']:.3f} ms "
             f"({_ms_pair(lr['parts']['fwd_ms'])}) + post-process {lr['post_ms']:.3f} ms "
-            f"({_ms_pair(lr['parts']['post_ms'])}); select launches {lr['launches']} in "
+            f"({_ms_pair(lr['parts']['post_ms'])}); with the plain NMS loop in the same turns: "
+            f"infer {lr['infer_plain_ms']:.3f} ms ({_ms_pair(lr['parts']['infer_plain_ms'])}), "
+            f"post-process {lr['post_plain_ms']:.3f} ms "
+            f"({_ms_pair(lr['parts']['post_plain_ms'])}); NMS sweeps per checked batch "
+            f"{lr['nms_sweeps']}; select and nms launches {lr['launches']} in "
             f"{2 * SERVE_BATCHES} batches, each equal to the plain version, routes "
             f"{', '.join(lr['checked_routes'])}; select {sel['ms'] * 1e3:.1f} us on these maps "
             f"(L2 flushed by a write; bound {bound_ms * 1e3:.1f} us by {bound_by}, "
@@ -1111,9 +1374,18 @@ def print_serving(r: dict) -> None:
           f"{r['maps_rel']:.3e} (bound {LAYOUT_MAPS_REL}); auto's maps contiguous NHWC; convs "
           f"under auto whose output is not channels-last: {strided_out or 'none'}; whose input "
           f"is not: {strided_in or 'none'}; uint8 H2D {r['h2d_ms']:.3f} ms; NMS sweeps "
-          f"{r['sweeps']} ({r['sweeps'] / (4 * SERVE_BATCHES):.1f}/batch); select launches "
-          f"{r['launches']}, worst ltrb err against plain {r['checked_err']:.3e}; kernel-vs-plain "
-          f"tail box err {r['tail_err']:.3e}")
+          f"{r['sweeps']} ({r['sweeps'] / (4 * SERVE_BATCHES):.1f}/batch, the device tally); "
+          f"select and nms launches {r['launches']} each, every nms launch equal to the plain "
+          f"version at conf 1e-5 and 0.25, worst ltrb err against plain {r['checked_err']:.3e}; "
+          f"kernel-vs-plain tail box err {r['tail_err']:.3e}")
+    t = r["nms"]
+    bound_ms, bound_by = bound_of(t["bytes_ms"], t["ops_ms"])
+    print(f"phase 5 nms {r['arch']} main path (auto's last batch: bs {BATCH}, K {t['k']}, "
+          f"{t['valid']} valid boxes, {t['sweeps']} sweeps, route {t['route']}): one launch "
+          f"{t['ms'] * 1e3:.1f} us (CUDA events behind a spin kernel; bound {bound_ms * 1e3:.2f} "
+          f"us by {bound_by}, {bound_ms / t['ms'] * 100:.1f} % of it; bytes alone "
+          f"{t['bytes_ms'] * 1e3:.2f} us); plain loop {t['plain_ms']:.3f} ms; host "
+          f"{t['host_us']:.1f} us to enqueue one call")
     c = r["conv_costs"]
 
     def conv_row(row):
@@ -1375,14 +1647,14 @@ def phase_full_width(work: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # counted run of the training path
-    select.launches = 0
+    zero_counts()
     nms_fixed.sweeps = 0
     t0 = time.perf_counter()
     with _quiet(os.path.join(root, "fit.log")):
         trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = select.launches
+    launches = launched("6c fit")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches != val_batches:
         raise AssertionError(f"6c: select launched {launches} times in a fit whose "
@@ -1410,14 +1682,14 @@ def phase_full_width(work: str) -> dict:
     period_ms = statistics.median(b - a for a, b in zip(host_starts[2:], host_starts[3:])) * 1e3
 
     # validate alone: timed, and one select launch per val batch
-    before = select.launches
+    before = counts()
     t0 = time.perf_counter()
     val_map = trainer.validate()
     torch.cuda.synchronize()
     val_ms = (time.perf_counter() - t0) * 1e3
-    if select.launches - before != val_batches:
-        raise AssertionError(f"6c: validate launched select {select.launches - before} times "
-                             f"for {val_batches} batches")
+    n = launched("6c validate", before)
+    if n != val_batches:
+        raise AssertionError(f"6c: validate launched select {n} times for {val_batches} batches")
 
     # the checkpoint written by fit, read back by resume
     ckpt = os.path.join(trainer.ckpt.dir, "last.ckpt")
@@ -1559,10 +1831,10 @@ def phase_tools_test(work: str) -> int:
     total, parts = 0, []
     for kind, ckpt in (("weights.npz", npz), ("reference .pt", pt)):
         out_dir = os.path.join(work, "detect_" + kind.split()[-1])
-        select.launches = 0
+        zero_counts()
         with _quiet(out_dir + ".log"):
             results = tools_test.run(cfg_path, ckpt, fixture, out_dir)
-        launches = select.launches
+        launches = launched(f"7a {kind}")
         if launches != 1:
             raise AssertionError(f"7a {kind}: select launched {launches} times for 1 batch")
         match_golden(results[fixture], golden)
@@ -1617,11 +1889,11 @@ def phase_export_val(work: str, full: dict) -> dict:
     launches, parts = 0, []
     for name in ("f32", "bf16"):
         info = exports[name]
-        select.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         result = tools_val.run(cfg_path, info["output"], verbose=False)
         val_s = time.perf_counter() - t0
-        n = select.launches
+        n = launched(f"7b {name}")
         if n != val_batches:
             raise AssertionError(f"7b {name}: select launched {n} times for {val_batches} "
                                  f"val batches")
@@ -1667,12 +1939,12 @@ def phase_video(work: str, full: dict, export_path: str) -> int:
                           device=DEVICE)
     predictor.predict_batch(np.zeros((BATCH, IMG, IMG, 3), np.uint8))  # warm-up
     out = os.path.join(work, "detected.mp4")
-    select.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     with _quiet(os.path.join(work, "video.log")):
         dets = predict_video(predictor, src, out)
     video_s = time.perf_counter() - t0
-    launches = select.launches
+    launches = launched("7c")
     if launches != math.ceil(len(paths) / BATCH):
         raise AssertionError(f"7c: select launched {launches} times for {len(paths)} frames "
                              f"in batches of {BATCH}")
@@ -1735,10 +2007,10 @@ def phase_unfolded(full: dict) -> int:
             if predictor.deploy or predictor.serve.memory_format != LAYOUT_FORMATS[layout]:
                 raise AssertionError(f"7f {arch} {layout}: deploy {predictor.deploy}, "
                                      f"{predictor.serve.memory_format}")
-            select.launches = 0
+            zero_counts()
             with tempfile.TemporaryDirectory() as out_dir:
                 results = predictor.predict_paths(fixture, out_dir, verbose=False)
-            if select.launches != 1:
+            if launched(f"7f {arch} {layout}") != 1:
                 raise AssertionError(f"7f {arch} {layout}: {select.launches} select launches "
                                      f"for 1 batch")
             launches += 1
@@ -1770,7 +2042,7 @@ def phase_unfolded(full: dict) -> int:
         if not maps_err <= EXPORT_MAPS_ATOL:
             raise AssertionError(f"7f 6c {layout}: unfolded raw maps differ from the folded "
                                  f"model's by {maps_err}")
-        select.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         n_dets = 0
         for i in range(0, len(u8), BATCH):
@@ -1779,7 +2051,7 @@ def phase_unfolded(full: dict) -> int:
             n_dets += int(out["valid"].sum())
         serve_s = time.perf_counter() - t0
         batches = math.ceil(len(u8) / BATCH)
-        if select.launches != batches:
+        if launched(f"7f 6c {layout}") != batches:
             raise AssertionError(f"7f 6c {layout}: {select.launches} select launches for "
                                  f"{batches} batches")
         launches += batches
@@ -2047,10 +2319,10 @@ def _learned_validate(root: str, ckpt: str) -> dict:
     extra = {"log_dir": os.path.join(root, f"runs_rank{get_rank()}")} if world_size() > 1 else {}
     trainer = Trainer(_learning_config(root, "dp_val", **extra), verbose=False, device=DEVICE)
     trainer.resume(ckpt)
-    before = select.launches
+    before = counts()
     map50 = trainer.validate()
     return {"map50": map50, "detections": trainer._last_val_detections,
-            "launches": select.launches - before, "val_batches": len(trainer.val_loader),
+            "launches": launched("8 validate", before), "val_batches": len(trainer.val_loader),
             "sharded": trainer._val_images_local}
 
 
@@ -2158,14 +2430,14 @@ def _dp_child_full(root: str, images: str, ann: str, val_images: str, val_ann: s
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # counted run of the data-parallel training path
-    select.launches = 0
+    zero_counts()
     syncs = all_reduce_sum.calls
     t0 = time.perf_counter()
     with _quiet(os.path.join(root, f"fit_rank{rank}.log")):
         trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches, syncs = select.launches, all_reduce_sum.calls - syncs
+    launches, syncs = launched("8b fit"), all_reduce_sum.calls - syncs
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     def replay_ms(sizes, reps=5):
@@ -2534,6 +2806,83 @@ def phase_select_variants(flush: torch.Tensor, name: str) -> None:
             del pairs, boxes, clss, fns
 
 
+# Edited copies of nms.cu: (label, [(line(s) of the kernel, replacement)],
+# whether its keep and sweeps must equal the kernel's)
+_NMS_BALANCED = (
+    "  const long long total = first_entry(words, k);\n"
+    "  int w = 0;\n"
+    "  for (long long e = threadIdx.x; e < total; e += kThreads) {\n"
+    "    while (first_entry(w + 1, k) <= e) ++w;\n"
+    "    const int j0 = 32 * w, i = j0 + 1 + (int)(e - first_entry(w, k));\n")
+_NMS_WHOLE_ROWS = (
+    "  for (int e = threadIdx.x; e < words * k; e += kThreads) {\n"
+    "    const int w = e / k, i = e - w * k, j0 = 32 * w;\n"
+    "    if (j0 >= i) continue;\n")
+_NMS_SKIP = "  if (inter == 0.0f && uni > 0.0f) return 0.0f > thresh;\n"
+NMS_VARIANTS = {
+    "no skip of the quotient where boxes do not intersect": ([(_NMS_SKIP, "")], True),
+    "whole rows dealt to threads": ([(_NMS_BALANCED, _NMS_WHOLE_ROWS)], True),
+    "both (the first design)": ([(_NMS_SKIP, ""), (_NMS_BALANCED, _NMS_WHOLE_ROWS)], True),
+    "the overlap bits alone (no sweep)": ([("  bool more = true;", "  bool more = false;")],
+                                          False),
+}
+
+
+def phase_nms_variants(name: str) -> None:
+    """Each of ``NMS_VARIANTS`` built into the ignored build directory (all
+    builds started together) and timed against the kernel as built, in
+    turns (kernel, variant, variant, kernel; CUDA events behind a spin
+    kernel, median of 10 each), on the flagship's NMS input (yolo-ms-xs,
+    phase 5's seeded weights and first batch, conf 1e-5), on K 4,096 and on
+    a 1,024-box chain; keep and sweeps must equal the kernel's where the
+    variant computes them."""
+    src = open(nms_mod.SOURCE).read()
+    os.makedirs(nms_mod.BUILD_DIR, exist_ok=True)
+    paths = {}
+    for i, (label, (edits, _)) in enumerate(NMS_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"nms variant {label!r}: its lines are not once in nms.cu")
+            text = text.replace(old, new)
+        paths[label] = os.path.join(nms_mod.BUILD_DIR, f"nms_variant_{i}.cu")
+        with open(paths[label], "w") as f:
+            f.write(text)
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        built = {label: pool.submit(nms_mod.build, path) for label, path in paths.items()}
+        libs = {label: nms_mod.bind(f.result()["path"]) for label, f in built.items()}
+    kernel = nms_mod._load()
+    predictor = Predictor("yolo-ms-xs", seeded_state_dict("yolo-ms-xs", NC, seed=1),
+                          num_classes=NC, input_size=(IMG, IMG), conf_thresh=1e-5,
+                          batch_size=BATCH, dtype=torch.bfloat16, device="cuda")
+    nspy = NmsSpy()
+    nspy.label = "flagship"
+    with nspy.on():
+        predictor.infer(torch.from_numpy(serve_batches()[0]).cuda())
+    chain_b, chain_s = _nms_random(2, 1024, 2)
+    chain_b[0], chain_s[0] = _nms_chain(1024)
+    cases = {"flagship": nspy.inputs["flagship"],
+             "K 4096": (*_nms_random(2, 4096, 1, pad=300, classes=4), NMS_IOU),
+             "chain": (chain_b, chain_s, NMS_IOU)}
+    for label, (_, same) in NMS_VARIANTS.items():
+        parts = []
+        for case, (boxes, scores, iou) in cases.items():
+            fns = {k: (lambda lib=lib: nms_mod.launch_with(lib, boxes, scores, iou))
+                   for k, lib in (("kernel", kernel), ("variant", libs[label]))}
+            if same:
+                want, got = fns["kernel"](), fns["variant"]()
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"nms variant {label!r} {case}: keep or sweeps differ")
+            times = {k: [] for k in fns}
+            for who in ("kernel", "variant", "variant", "kernel"):
+                times[who].append(cuda_ms(fns[who], 10, cover=True))
+            parts.append(f"{case} (bs {boxes.shape[0]}, K {boxes.shape[1]}): " + ", ".join(
+                f"{k} " + "/".join(f"{t * 1e3:.1f}" for t in v) + " us" for k, v in times.items()))
+        print(f"variant nms {label}: " + "; ".join(parts))
+    del predictor
+
+
 # ---------------------------------------------------------------- phase 9
 
 # 9b: the program against Predictor.infer on the same batches, as phase 5's
@@ -2633,9 +2982,12 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
        seeded yolo-ms-xs (nc=80, bs=32, 640², conf 1e-5);
     b. the flagship program on phase 5's 8 batches against
        ``Predictor.infer`` on the same batches (a counted run: one ``select``
-       launch per call), its ms/batch on the host clock, and the tail alone
-       exported and timed against the eager tail (CUDA events, in turns),
-       then all four profiled (``serving_profile``);
+       and one ``nms`` launch per call), its ms/batch on the host clock, and
+       the tail alone exported and timed against the eager tail (CUDA
+       events, in turns), then all four profiled (``serving_profile``),
+       with the eager tail's plain NMS loop beside them: none of the four
+       may read a device value, and the program, ``infer`` and the traced
+       tail run once under ``torch.cuda.set_sync_debug_mode("error")``;
     c. a child interpreter serves the golden programs through
        ``load_program`` and must import no ``yolo_ms_tpu_torch.models``
        module; its detections match the golden ones;
@@ -2688,13 +3040,13 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
             return {k: v.cpu().numpy() for k, v in out.items()}
 
     serve(batches[0])  # warm-up
-    select.launches = 0
+    zero_counts()
     host_ms, outs = [], []
     for imgs in batches:
         t0 = time.perf_counter()
         outs.append(serve(imgs))
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = select.launches
+    launches = launched("9b")
     if launches != SERVE_BATCHES:
         raise AssertionError(f"9b: select launched {launches} times in {SERVE_BATCHES} "
                              f"program calls")
@@ -2721,13 +3073,28 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
         program_ms = cuda_ms(lambda: program(x0), 5)
         # where the program's extra device time goes: the same input through
         # the program and the eager function, whole and tail alone, profiled
-        sweeps0 = nms_fixed.sweeps
+        sweeps0 = int(nms_fixed.sweeps)
         _Tail()(maps)
-        sweeps = nms_fixed.sweeps - sweeps0
+        sweeps = int(nms_fixed.sweeps) - sweeps0
         prof = {"program": serving_profile(lambda: program(x0)),
                 "infer": serving_profile(lambda: predictor.infer(x0)),
                 "tail traced": serving_profile(lambda: tail(maps)),
                 "tail eager": serving_profile(lambda: _Tail()(maps))}
+        with plain_nms():
+            prof["tail eager, plain NMS loop"] = serving_profile(lambda: _Tail()(maps))
+        # nothing in the serving function waits for the card: any operation
+        # that would raises in this mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            program(x0)
+            predictor.infer(x0)
+            tail(maps)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for key in ("program", "infer", "tail traced", "tail eager"):
+        if prof[key]["reads"]:
+            raise AssertionError(f"9b: {key} read a device value {prof[key]['reads']} times "
+                                 f"per call")
     med = statistics.median(host_ms)
     print(f"phase 9b program yolo-ms-xs bs={BATCH} {IMG}px bf16: {med:.3f} ms/batch (host "
           f"clock, median of {SERVE_BATCHES}, uint8 numpy in -> numpy out) beside phase 5's "
@@ -2735,9 +3102,10 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
           f"(CUDA events) beside phase 5's infer {flagship['infer_ms']:.3f} ms; post-process "
           f"alone, traced {' / '.join(f'{t:.3f}' for t in traced_ms)} ms against eager "
           f"{' / '.join(f'{t:.3f}' for t in eager_ms)} ms (CUDA events, in turns; the tail "
-          f"exported in {tail_export_s:.2f} s); select launches {launches} in "
+          f"exported in {tail_export_s:.2f} s); select and nms launches {launches} each in "
           f"{SERVE_BATCHES} calls; against Predictor.infer: valid and classes equal, boxes "
-          f"max abs err {box_err:.3e} px, scores max rel err {score_err:.3e}")
+          f"max abs err {box_err:.3e} px, scores max rel err {score_err:.3e}; the program, "
+          f"infer and the traced tail ran under torch.cuda.set_sync_debug_mode('error')")
     for name, p in prof.items():
         busy = f"{p['busy_ms']:.3f}" if p["busy_ms"] else "not measured"
         idle = f"{p['wall_ms'] - p['busy_ms']:.3f}" if p["busy_ms"] else "not measured"
@@ -2774,7 +3142,7 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
     n_images = len(glob.glob(os.path.join(images, "*.jpg")))
     dirs = {"sequential": os.path.join(root, "seq"), "pipelined": os.path.join(root, "pipe")}
     rates = {"sequential": [], "pipelined": []}
-    select.launches = 0
+    zero_counts()
     results = {}
     for mode in ("sequential", "pipelined", "pipelined", "sequential"):
         t0 = time.perf_counter()
@@ -2784,7 +3152,7 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
         rates[mode].append(n_images / (time.perf_counter() - t0))
         if got != results.setdefault(mode, got) or got != results["sequential"]:
             raise AssertionError(f"9d: {mode} predict_paths results differ")
-    pp_launches = select.launches
+    pp_launches = launched("9d")
     if pp_launches != 4 * math.ceil(n_images / BATCH):
         raise AssertionError(f"9d: select launched {pp_launches} times in 4 runs of "
                              f"{n_images} images")
@@ -2836,7 +3204,7 @@ def phase_program_default(root: str, folded: str, flagship: dict, auto_ms: float
                           input_size=(IMG, IMG), conf_thresh=1e-5, batch_size=BATCH,
                           dtype=torch.bfloat16, entry_layouts="default", device="cuda")
     serve_nchw(batches[0])  # warm-up
-    select.launches = 0
+    zero_counts()
     nchw_ms, outs = [], []
     for imgs in batches:
         n = select.launches
@@ -2846,7 +3214,7 @@ def phase_program_default(root: str, folded: str, flagship: dict, auto_ms: float
         if select.launches != n + 1 or select_scales.last_routes != [("tma", "tma")] * 3:
             raise AssertionError(f"9e: {select.launches - n} select launches, routes "
                                  f"{select_scales.last_routes}")
-    nchw_launches = select.launches
+    nchw_launches = launched("9e")
     box_err = score_err = 0.0
     for k, (imgs, got) in enumerate(zip(batches, outs)):
         check_outputs(got, "9e program")
@@ -2935,11 +3303,11 @@ def _sp_timed(fn, before=lambda: None) -> tuple[dict, list, float]:
     for _ in range(SP_SERVE_CALLS):
         torch.cuda.synchronize()
         before()
-        n, t0 = select.launches, time.perf_counter()
+        n, t0 = counts(), time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        launches.append(select.launches - n)
+        launches.append(launched("10c", n))
     return {k: v.cpu() for k, v in out.items()}, launches, statistics.median(times[1:])
 
 
@@ -3022,14 +3390,14 @@ def _sp_child_full(root: str, images: str, ann: str, val_images: str, val_ann: s
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # counted run of the hybrid training path
-    select.launches = 0
+    zero_counts()
     exchanges, syncs = shards.exchanges, all_reduce_sum.calls
     t0 = time.perf_counter()
     with _quiet(os.path.join(root, f"sp_fit_rank{rank}.log")):
         trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = select.launches
+    launches = launched("10b fit")
     exchanges, syncs = shards.exchanges - exchanges, all_reduce_sum.calls - syncs
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     shards._send_recv = send_recv
@@ -3331,13 +3699,13 @@ def phase_benchmark(runs: list, full: dict) -> dict:
     e2e_launches = 0
     for arch in SERVE_ARCHS:
         checked = _bench_e2e_check(arch)
-        select.launches = 0
+        zero_counts()
         nms_fixed.sweeps = 0
         t0 = time.perf_counter()
         r = benchmark.run_benchmark(arch, BATCH, "e2e", IMG, NC, BENCH_K, BENCH_REPS,
                                     device="cuda")
         seconds = time.perf_counter() - t0
-        launches, sweeps = select.launches, nms_fixed.sweeps
+        launches, sweeps = launched(f"11a {arch}"), int(nms_fixed.sweeps)
         if launches != iters:
             raise AssertionError(f"11a {arch}: select launched {launches} times in {iters} "
                                  f"e2e iterations")
@@ -3378,7 +3746,7 @@ def phase_benchmark(runs: list, full: dict) -> dict:
           f"step counter {int(loop.state.step)}; {seconds:.1f} s; {json.dumps(r)}")
     del loop, losses
 
-    select.launches = 0
+    zero_counts()
     nms_fixed.sweeps = 0
     t0 = time.perf_counter()
     r = benchmark.run_streaming("yolo-ms-xs", BATCH, IMG, NC, threads=BENCH_THREADS,
@@ -3388,7 +3756,7 @@ def phase_benchmark(runs: list, full: dict) -> dict:
     calls = 2 + 2 * n_batches
     if (r["entry_layouts"], r["memory_format"]) != ("auto", "channels_last"):
         raise AssertionError(f"11d: served {r['entry_layouts']} in {r['memory_format']}")
-    if select.launches != calls:
+    if launched("11d") != calls:
         raise AssertionError(f"11d: select launched {select.launches} times in {calls} calls")
     print(f"phase 11d benchmark streaming yolo-ms-xs bs={BATCH} {IMG}px bf16, {r['n_images']} "
           f"JPEGs, {BENCH_THREADS} threads, depth {BENCH_DEPTH}: sustained "
@@ -3398,7 +3766,7 @@ def phase_benchmark(runs: list, full: dict) -> dict:
           f"device {r['device_only_img_per_s']} img/s; bound {r['bound']}; "
           f"cores_per_chip_derived {r['cores_per_chip_derived']}; select launches "
           f"{select.launches} in {calls} calls ({n_batches} batches served, sustained leg "
-          f"complete); NMS sweeps {nms_fixed.sweeps / calls:.2f} per call; {seconds:.1f} s; "
+          f"complete); NMS sweeps {int(nms_fixed.sweeps) / calls:.2f} per call; {seconds:.1f} s; "
           f"{json.dumps(r)}")
     return {"benchmark_e2e": e2e_launches, "benchmark_streaming": calls}
 
@@ -3487,13 +3855,13 @@ def phase_native_streaming() -> dict:
     reports, launches = {}, 0
     for native in (True, False) if missing is None else (False,):
         with _decoder(native):
-            select.launches = 0
+            zero_counts()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 benchmark.main(argv)
             r = json.loads(buf.getvalue().strip().splitlines()[-1])
         calls = 2 + 2 * (r["n_images"] // BATCH)
-        if r["native_loader"] != native or select.launches != calls:
+        if r["native_loader"] != native or launched(f"11e native={native}") != calls:
             raise AssertionError(f"11e native={native}: native_loader {r['native_loader']}, "
                                  f"select launched {select.launches} times in {calls} calls")
         reports["native" if native else "cv2"] = r
@@ -3564,7 +3932,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="another checkout whose select kernel to time against")
     parser.add_argument("--variants", action="store_true",
-                        help="time the edited copies of select.cu in SELECT_VARIANTS")
+                        help="time the edited copies of select.cu and nms.cu in "
+                             "SELECT_VARIANTS and NMS_VARIANTS")
     parser.add_argument("--preempt-child", nargs="+", help=argparse.SUPPRESS)
     parser.add_argument("--dp-child", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -3582,7 +3951,10 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"phase 1 device: {name} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    info = select_mod.build()
+    # both kernels' nvcc at once
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(select_mod.build), pool.submit(nms_mod.build)]
+        info, nms_info = (b.result() for b in builds)
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
     plans = "; ".join(
         "{} nc={}: {route}, {tile} anchors per tile, {stages} stages, {smem_bytes} B shared per "
@@ -3591,6 +3963,11 @@ def main() -> int:
         for dt in (torch.bfloat16, torch.float32) for nc in PHASE3_NC
     )
     print(f"phase 2 build select.cu: {info['seconds']:.2f} s; {'; '.join(regs)}; plan: {plans}")
+    nms_regs = [ln.strip() for ln in nms_info["log"].splitlines() if "registers" in ln]
+    nms_plans = "; ".join("K={} {route}, {smem_bytes} B shared of {smem_limit}, {threads} "
+                          "threads per CTA".format(k, **nms_mod.plan(k)) for k in NMS_PLAN_K)
+    print(f"phase 2 build nms.cu (beside select.cu): {nms_info['seconds']:.2f} s; "
+          f"{'; '.join(nms_regs)}; plan: {nms_plans}")
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     if args.parent or args.variants:
@@ -3598,10 +3975,12 @@ def main() -> int:
             phase_parent_ab(args.parent, flush, name)
         if args.variants:
             phase_select_variants(flush, name)
+            phase_nms_variants(name)
         print(smi)
         return 0
 
     worst = phase_kernel_vs_plain(flush, name)
+    phase_nms_vs_plain(name)
     phase_cuda_tests()
     phase_goldens()
 
@@ -3632,28 +4011,45 @@ def main() -> int:
     tools.update(phase_benchmark(runs, full))
     tools.update(phase_native_streaming())
 
-    # one batch of the flagship, one launch
-    sel = runs[0]["select"]
+    # one batch of the flagship, one launch of each kernel
+    sel, nms_t = runs[0]["select"], runs[0]["nms"]
     bound_ms, bound_by = bound_of(sel["bytes_ms"], sel["ops_ms"])
+    nms_bound_ms, nms_bound_by = bound_of(nms_t["bytes_ms"], nms_t["ops_ms"])
     worst = max([worst, wide["err"], finetune["err"]] + [r["select"]["err"] for r in runs])
     serve_launches = sum(r["launches"] for r in runs)
     tools["serve_wide"] = wide["launches"]
     tools["serve_finetune"] = finetune["launches"]
+    # every path's count was checked equal for both kernels (``launched``)
+    by_path = {"serve": serve_launches, "train_validate": full["launches"], **tools}
     kernels = [{
         "name": "select",
         "route": "cuda",
         "source": "yolo_ms_tpu_torch/csrc/select.cu",
         "replaces": "yolo_ms_tpu/ops/pallas/select.py:56",
-        "launches": serve_launches + full["launches"] + sum(tools.values()),
-        "launches_by_path": {"serve": serve_launches, "train_validate": full["launches"],
-                             **tools},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": worst,
         "ms": sel["ms"],
         "plain_ms": sel["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "nms",
+        "route": "cuda",
+        "source": "yolo_ms_tpu_torch/csrc/nms.cu",
+        "replaces": "yolo_ms_tpu/ops/nms.py:75",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": NMS_CHECKS["err"],
+        "ms": nms_t["ms"],
+        "plain_ms": nms_t["plain_ms"],
+        "bound_ms": nms_bound_ms,
+        "bound_by": nms_bound_by,
+        "library_ms": None,
     }]
+    print(f"nms kernel: {NMS_CHECKS['launches']} launches held against the plain version, "
+          f"worst error {NMS_CHECKS['err']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""CUDA-only tests of the port: the hand-written select kernel against its
-plain version (through its wrapper and through its ``torch.library`` op),
+"""CUDA-only tests of the port: the hand-written select and NMS kernels
+against their plain versions (through their wrappers and their
+``torch.library`` ops), the serving function with no host read
+(``torch.cuda.set_sync_debug_mode("error")``),
 the kernel tail of ``fused_postprocess`` against the plain tail, an
 exported serving program against ``Predictor.infer``, and channels-last
 serving (``entry_layouts="auto"``) against the default layout, on the card.
@@ -342,6 +344,189 @@ def test_select_op_on_card_matches_plain(card):
         got = torch.ops.yolo_ms_tpu_torch.select_scales(boxes, clss, REG_MAX)
     assert select.launches == before + 2
     _assert_equal_to_plain(got, select_scales_plain(pairs, REG_MAX), torch.bfloat16)
+
+
+def _nms_inputs(b, k, seed=0, span=400.0, pad=0, classes=1):
+    """Seeded boxes [b, k, 4] xyxy, shifted by a class among ``classes`` as
+    the serving tail shifts them, and descending scores [b, k] with the last
+    ``pad`` rows invalid, on the card."""
+    import numpy as np
+
+    from yolo_ms_tpu_torch.ops.nms import CLASS_OFFSET
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, span, (b, k, 2))
+    sizes = rng.uniform(8, 60, (b, k, 2))
+    boxes = np.concatenate([centers - sizes / 2, centers + sizes / 2], -1)
+    boxes += rng.integers(0, classes, (b, k, 1)) * CLASS_OFFSET
+    scores = np.sort(rng.uniform(0.05, 1.0, (b, k)), axis=1)[:, ::-1].copy()
+    if pad:
+        scores[:, -pad:] = -1.0
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(scores.astype(np.float32)).cuda())
+
+
+def _nms_chain(n, iou, width=20.0):
+    """n boxes in a row, each overlapping the next above ``iou`` and the one
+    after that below it: the fixed point settles one link per sweep."""
+    r = (1.0 - iou) / (1.0 + iou)
+    x = torch.arange(n, dtype=torch.float64) * 0.75 * r * width
+    boxes = torch.stack([x, torch.zeros(n, dtype=torch.float64), x + width,
+                         torch.full((n,), 10.0, dtype=torch.float64)], -1)
+    return boxes.float().cuda(), torch.linspace(1.0, 0.5, n).cuda()
+
+
+def _assert_nms_equal_to_plain(boxes, scores, iou):
+    """One launch of the NMS kernel: the plain fixed point's keep mask and
+    sweeps per image, exactly, on the route ``route`` names for K."""
+    from yolo_ms_tpu_torch.ops.kernels.nms import nms, nms_fixed_plain, route
+
+    before = nms.launches
+    keep, sweeps = nms(boxes, scores, iou)
+    assert nms.launches == before + 1
+    assert nms.last_route == route(boxes.shape[1])
+    want_keep, want_sweeps = nms_fixed_plain(boxes, scores, iou)
+    torch.cuda.synchronize()
+    assert keep.dtype == torch.bool and sweeps.dtype == torch.int32
+    assert torch.equal(keep, want_keep)
+    assert torch.equal(sweeps, want_sweeps), (sweeps, want_sweeps)
+    return keep, sweeps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iou", [0.3, 0.45, 0.7])
+@pytest.mark.parametrize("case", ["flagship", "goldens", "b1", "all_invalid", "global"])
+def test_nms_kernel_matches_plain(card, case, iou):
+    """The flagship's shape (32 images of K = 1,024 boxes shifted over 80
+    classes, 100 invalid rows), the goldens' K = 525 (not a multiple of 32),
+    one image, a row with no valid box, and K = 4,096 (the global-scratch
+    route)."""
+    b, k, kw = {"flagship": (32, 1024, dict(pad=100, classes=80, span=640.0)),
+                "goldens": (2, 525, dict(pad=40, span=160.0)),
+                "b1": (1, 1024, dict(pad=7, classes=3)),
+                "all_invalid": (3, 300, {}),
+                "global": (2, 4096, dict(pad=300, classes=4, span=640.0))}[case]
+    boxes, scores = _nms_inputs(b, k, seed=int(iou * 100), **kw)
+    if case == "all_invalid":
+        scores[1] = -1.0
+    keep, sweeps = _assert_nms_equal_to_plain(boxes, scores, iou)
+    assert 0 < int(keep.sum()) < int((scores > 0).sum())
+    if case == "all_invalid":
+        assert not keep[1].any() and int(sweeps[1]) == 1
+
+
+@pytest.mark.cuda
+def test_nms_kernel_chain_of_1024(card):
+    """A chain of 1,024 boxes (1,023 links) beside a random image: the
+    kernel runs as many sweeps as the plain loop, up to K."""
+    cb, cs = _nms_chain(1024, 0.45)
+    boxes, scores = _nms_inputs(2, 1024, seed=5, span=640.0)
+    boxes[0], scores[0] = cb, cs
+    keep, sweeps = _assert_nms_equal_to_plain(boxes, scores, 0.45)
+    assert keep[0].tolist() == [i % 2 == 0 for i in range(1024)]
+    assert int(sweeps[0]) > 1000 >= int(sweeps[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iou", [0.5, 0.3])
+def test_nms_kernel_iou_exactly_at_the_threshold(card, iou):
+    """IoU 50 / 100 = 0.5 and 30 / 100 (the f32 nearest 0.3) are not above
+    their thresholds rounded to f32; a hair below, the second box goes."""
+    import numpy as np
+
+    small = {0.5: 5.0, 0.3: 3.0}[iou]
+    boxes = torch.tensor([[[0, 0, 10, 10], [0, 0, 10, small]]], device="cuda")
+    scores = torch.tensor([[0.9, 0.8]], device="cuda")
+    keep, _ = _assert_nms_equal_to_plain(boxes, scores, iou)
+    assert keep.tolist() == [[True, True]]
+    below = float(np.nextafter(np.float32(iou), np.float32(0)))
+    keep, _ = _assert_nms_equal_to_plain(boxes, scores, below)
+    assert keep.tolist() == [[True, False]]
+
+
+@pytest.mark.cuda
+def test_nms_plan_route_is_route(card):
+    """The kernel's own route rule (``yolo_nms_plan``, from the card's
+    opt-in shared memory) is the host's (``route``)."""
+    from yolo_ms_tpu_torch.ops.kernels.nms import plan, route
+
+    for k in (1, 31, 525, 1024, 1288, 1289, 4096):
+        p = plan(k)
+        assert p["route"] == route(k), (k, p)
+        assert p["smem_bytes"] <= p["smem_limit"] == 227 * 1024
+
+
+@pytest.mark.cuda
+def test_nms_op_on_card_is_the_kernel(card):
+    """The op on CUDA tensors launches the kernel (one launch a call), and
+    raises on what the kernel does not take: no plain fallback."""
+    from yolo_ms_tpu_torch.ops.kernels.nms import nms, nms_fixed_plain
+
+    boxes, scores = _nms_inputs(2, 64, seed=1, span=100.0)
+    before = nms.launches
+    keep, sweeps = torch.ops.yolo_ms_tpu_torch.nms_fixed(boxes, scores, 0.45)
+    assert nms.launches == before + 1
+    want = nms_fixed_plain(boxes, scores, 0.45)
+    assert torch.equal(keep, want[0]) and torch.equal(sweeps, want[1])
+    with pytest.raises(TypeError):
+        nms(boxes.double(), scores.double(), 0.45)
+    with pytest.raises(ValueError):
+        nms(boxes[:, ::2], scores[:, ::2], 0.45)
+    assert nms.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_serving_reads_nothing_back(card, tmp_path):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` (any operation that
+    waits for the card raises): ``Predictor.infer``, the exported program
+    and the benchmark CLI's ``e2e`` loop, after a warm-up call each, with
+    one ``nms`` launch per call."""
+    import os
+
+    import numpy as np
+
+    from yolo_ms_tpu_torch.infer.predictor import Predictor
+    from yolo_ms_tpu_torch.infer.program import load_program
+    from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
+    from yolo_ms_tpu_torch.ops.kernels.nms import nms
+    from yolo_ms_tpu_torch.tools.benchmark import make_loop
+    from yolo_ms_tpu_torch.tools.export import export_program
+    from yolo_ms_tpu_torch.utils.convert import load_npz
+
+    sd = fold_batchnorm(load_npz(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "golden", "trained", "weights.npz")))
+    path = str(tmp_path / "serve.pt2")
+    export_program(sd, "n", 3, path, batch=2, img_size=(160, 160), device="cuda")
+    program = load_program(path, device="cuda")
+    predictor = Predictor("n", sd, num_classes=3, input_size=(160, 160),
+                          dtype=torch.bfloat16, conf_thresh=0.25, device="cuda")
+    loop = make_loop("n", 2, "e2e", img_size=160, device="cuda")
+    images = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (2, 160, 160, 3), dtype=np.uint8)).cuda()
+
+    def serve_program(x):
+        with torch.inference_mode():
+            return program(x)
+
+    calls = [lambda: predictor.infer(images), lambda: serve_program(images),
+             lambda: loop(0), lambda: loop(1)]
+    for call in calls:
+        call()  # warm-up: cuDNN plans, the kernels' builds
+    torch.cuda.synchronize()
+    before = nms.launches
+    acc = torch.zeros((), device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            for call in calls[:2]:
+                out = call()
+                acc = acc + out["scores"].sum()
+            for i in range(3):
+                acc = acc + loop(i).float()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(acc).item()
+    assert nms.launches == before + 10
 
 
 @pytest.mark.cuda

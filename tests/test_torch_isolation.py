@@ -52,6 +52,7 @@ def test_port_imports_no_jax_flax_triton_or_jax_package():
         "yolo_ms_tpu_torch.ops.nms",
         "yolo_ms_tpu_torch.ops.postprocess",
         "yolo_ms_tpu_torch.ops.kernels.select",
+        "yolo_ms_tpu_torch.ops.kernels.nms",
         "yolo_ms_tpu_torch.data.augment",
         "yolo_ms_tpu_torch.data.decode",
         "yolo_ms_tpu_torch.data.native_loader",

@@ -5,9 +5,10 @@ maps, with the assertions of tests/test_pallas_select.py: ``valid`` and
 ``classes`` equal, scores rtol 1e-5, boxes atol 1e-3. Plus the confidence
 edges, a tie case compared as sets (``torch.topk`` may order exact ties
 differently from ``approx_max_k``), and ``nms_fixed`` against the
-sequential scan and the JAX ``nms_fixed``; the fixed point traced by
-``torch.export`` (a ``while_loop``) against the eager loop, bit for bit and
-sweep for sweep; and ``class_aware=False`` against the JAX functions.
+sequential scan and the JAX ``nms_fixed``; the fixed point exported by
+``torch.export`` (one node of the ``nms_fixed`` op) against the eager call,
+bit for bit and sweep for sweep; and ``class_aware=False`` against the JAX
+functions.
 """
 
 import jax
@@ -19,10 +20,9 @@ import torch
 from yolo_ms_tpu.ops.nms import batched_nms as jax_batched_nms
 from yolo_ms_tpu.ops.nms import nms_fixed as jax_nms_fixed
 from yolo_ms_tpu.ops.postprocess import fused_postprocess as jax_fused
+from yolo_ms_tpu_torch.ops.kernels.nms import nms
 from yolo_ms_tpu_torch.ops.nms import (
     CLASS_OFFSET,
-    _fixed_point_traced,
-    _overlap_and_valid,
     batched_nms,
     nms_fixed,
     nms_greedy_scan,
@@ -219,32 +219,37 @@ class _TracedNms(torch.nn.Module):
         self.iou = iou
 
     def forward(self, boxes, scores):
-        keep, sweeps = _fixed_point_traced(*_overlap_and_valid(boxes, scores, self.iou))
+        keep, sweeps = nms(boxes, scores, self.iou)
         return nms_fixed(boxes, scores, self.iou), keep, sweeps
 
 
 @pytest.mark.parametrize("iou", [0.3, 0.45, 0.7])
 def test_traced_fixed_point_equals_eager(iou):
     """Rows: random boxes with padding, all padding, and a chain of 24 (23
-    links) padded to 48. The exported loop gives the eager loop's keep mask
-    bit for bit and runs as many sweeps; ``nms_fixed`` takes it while
-    exporting."""
+    links) padded to 48. ``torch.export`` records the fixed point as nodes
+    of the ``nms_fixed`` op, with no ``while_loop``; the exported program
+    gives the eager keep mask bit for bit, its sweeps per image top out at
+    the eager loop's count, and it adds nothing to ``nms_fixed.sweeps``."""
     boxes, scores = _nms_case(int(iou * 100), b=3)
     scores[1] = -1.0
     cb, cs = _chain(24, iou)
     boxes[2, :24], scores[2, :24], scores[2, 24:] = cb, cs, -1.0
     boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
     program = torch.export.export(_TracedNms(iou), (boxes, scores), strict=False).module()
-    nodes = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
-    assert "while_loop" in nodes
+    nodes = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert nodes.count("yolo_ms_tpu_torch.nms_fixed.default") == 2
+    assert not any("while_loop" in n for n in nodes)
 
     before = nms_fixed.sweeps
     want = nms_fixed(boxes, scores, iou)
-    eager_sweeps = nms_fixed.sweeps - before
+    eager_sweeps = int(nms_fixed.sweeps - before)
+    tally = int(nms_fixed.sweeps)
     got, keep, sweeps = program(boxes, scores)
-    assert nms_fixed.sweeps == before + eager_sweeps  # the program counts none
+    assert int(nms_fixed.sweeps) == tally  # the program counts none
     assert torch.equal(got, want) and torch.equal(keep, want)
-    assert int(sweeps) == eager_sweeps > 10
+    assert sweeps.dtype == torch.int32 and sweeps.shape == (3,)
+    assert int(sweeps.max()) == eager_sweeps > 10
+    assert sweeps[1] == 1  # all padding: one unchanged sweep
     assert torch.equal(want, nms_greedy_scan(boxes, scores, iou))
     assert not want[1].any()
     assert want[2, :24].tolist() == [k % 2 == 0 for k in range(24)]

@@ -2,7 +2,7 @@
 
 ``python -m yolo_ms_tpu_torch.tools.export --program`` traces the serving
 function (uint8 -> normalize -> BN-folded bf16 forward -> ``fused_postprocess``
-with the ``select`` op and the NMS ``while_loop``) of each trained golden at
+with the ``select`` op and the ``nms_fixed`` op) of each trained golden at
 160 px into a file. The file, loaded by ``load_program``, gives what
 ``Predictor(dtype=torch.bfloat16).predict_batch`` gives (``valid`` and
 ``classes`` equal; boxes and scores at rtol 1e-5 / atol 1e-4, the tolerance
@@ -89,7 +89,9 @@ def test_program_matches_predictor(programs, arch):
     assert torch.export.load(programs[arch]).example_inputs is None  # no batch inside
     program = load_program(programs[arch], device="cpu")
     targets = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
-    assert {"yolo_ms_tpu_torch.select_scales.default", "while_loop"} <= targets
+    assert {"yolo_ms_tpu_torch.select_scales.default",
+            "yolo_ms_tpu_torch.nms_fixed.default"} <= targets
+    assert not any("while_loop" in t for t in targets)
     with torch.inference_mode():
         out = program(torch.from_numpy(_image(arch)))
     _assert_same({k: v.numpy() for k, v in out.items()}, _predictor_out(arch))

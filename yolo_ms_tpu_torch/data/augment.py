@@ -213,13 +213,24 @@ def device_normalize_images(images: torch.Tensor, dtype: torch.dtype) -> torch.T
 
     One f32 multiply-add, x*s + t with s = 1/(255*std) and t = -mean/std
     (the JAX package's constants, computed the same way in numpy f32), then
-    a single cast to the compute dtype.
+    a single cast to the compute dtype. The constants are made on the
+    device from Python scalars, so no host-to-device copy waits for the
+    card.
     """
     if images.dtype != torch.uint8:
         return images
-    s = torch.from_numpy(1.0 / (255.0 * IMAGENET_STD)).to(images.device)
-    t = torch.from_numpy(-IMAGENET_MEAN / IMAGENET_STD).to(images.device)
+    s = _channel_constants(1.0 / (255.0 * IMAGENET_STD), images.device)
+    t = _channel_constants(-IMAGENET_MEAN / IMAGENET_STD, images.device)
     return (images.float() * s + t).to(dtype)
+
+
+def _channel_constants(values: np.ndarray, device) -> torch.Tensor:
+    """Three f32 ``values`` as a [3] tensor filled on ``device`` (each is an
+    f32, so its Python float fills it exactly)."""
+    c = torch.arange(3, device=device)
+    out = torch.full((3,), float(values[2]), dtype=torch.float32, device=device)
+    out = torch.where(c == 1, float(values[1]), out)
+    return torch.where(c == 0, float(values[0]), out)
 
 
 def mosaic4(samples, rng, out_size):

@@ -5,11 +5,13 @@
 normalize -> forward (split head) -> ``fused_postprocess`` -> the detection
 dict. ``Predictor.infer`` runs it eagerly;
 ``tools/export.py:export_program`` traces it with ``torch.export`` into a
-file that holds the weights, the graph and the calls of the ``select`` op.
+file that holds the weights, the graph and the calls of the ``select`` and
+``nms_fixed`` ops.
 
 ``load_program`` serves such a file without the model code: it imports only
-the module that registers the ``select`` op (and builds its kernel at first
-use on the card), never a ``yolo_ms_tpu_torch.models`` module.
+the modules that register the ``select`` and ``nms_fixed`` ops (and build
+their kernels at first use on the card), never a
+``yolo_ms_tpu_torch.models`` module.
 """
 
 from __future__ import annotations
@@ -88,7 +90,9 @@ def load_program(path: str, device=None) -> nn.Module:
     parameters frozen. ``device`` resolves as everywhere in the port (the
     card unless ``"cpu"``); it must be the device the program was exported
     on, which its weights and graph are tied to."""
-    # registers yolo_ms_tpu_torch::select_scales, which the program calls
+    # register yolo_ms_tpu_torch::select_scales and ::nms_fixed, which the
+    # program calls
+    import yolo_ms_tpu_torch.ops.kernels.nms  # noqa: F401
     import yolo_ms_tpu_torch.ops.kernels.select  # noqa: F401
 
     dev = resolve_device(device)

@@ -109,16 +109,23 @@ def build(source: str = SOURCE) -> dict:
     interface) unless a library of the same source and flags is already in
     ``build/``. Returns {'path', 'seconds', 'log'} (seconds 0.0 and an empty
     log when the library was already there)."""
+    return nvcc_build(source, NVCC_FLAGS, "libselect")
+
+
+def nvcc_build(source: str, flags: tuple, prefix: str) -> dict:
+    """``source`` compiled by nvcc with ``flags`` into
+    ``build/{prefix}_{hash of source and flags}.so``, unless that library is
+    already there; the ``build`` of each kernel's module."""
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = os.path.join(BUILD_DIR, f"libselect_{digest[:16]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
+    path = os.path.join(BUILD_DIR, f"{prefix}_{digest[:16]}.so")
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+        [_nvcc(), *flags, "-o", tmp, source],
         capture_output=True,
         text=True,
     )

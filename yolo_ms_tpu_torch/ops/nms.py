@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 
 from yolo_ms_tpu_torch.ops.iou import pairwise_iou_xyxy, xywh_to_xyxy
+from yolo_ms_tpu_torch.ops.kernels.nms import nms as nms_kernel
+from yolo_ms_tpu_torch.ops.kernels.nms import nms_fixed_plain
 
 # Class-offset stride: larger than any coordinate the model can produce, so
 # boxes of different classes never overlap after the shift.
@@ -30,76 +32,32 @@ def nms_greedy_scan(boxes, scores, iou_thresh: float) -> torch.Tensor:
     return keep
 
 
-def _overlap_and_valid(boxes, scores, iou_thresh: float):
-    """The fixed point's operands: overlap [B, N, N] f32 0/1, where j < i
-    (a higher-scored box) overlaps i above ``iou_thresh``; valid [B, N]."""
-    n = boxes.shape[-2]
-    iou = pairwise_iou_xyxy(boxes)
-    # strictly lower triangle: a higher-scored j < i may suppress i
-    tri = torch.ones(n, n, dtype=torch.bool, device=boxes.device).tril(-1)
-    return ((iou > iou_thresh) & tri).float(), scores > 0.0
-
-
-def _sweep(overlap, valid, keep):
-    """One sweep of the fixed point: keep[i] = valid[i] and no kept j < i
-    overlaps i. overlap [B, N, N] f32 0/1 (strictly lower triangle); the
-    product is an exact count in f32 (or TF32)."""
-    suppressed = torch.bmm(overlap, keep.float().unsqueeze(-1)).squeeze(-1) > 0.0
-    return valid & ~suppressed
-
-
-def _fixed_point_traced(overlap, valid):
-    """The fixed point as one ``while_loop`` (JAX ``ops/nms.py:108-125``),
-    for ``torch.export``: carries (keep, prev, sweeps) and stops when a sweep
-    changes nothing or after N sweeps. ``prev`` starts at ``~valid``, so the
-    first sweep always runs and the sweeps counted equal the eager loop's.
-    Returns (keep, sweeps as a 0-d int64 tensor)."""
-    from torch._higher_order_ops import while_loop
-
-    n = overlap.shape[-1]
-
-    def cond(keep, prev, it):
-        return (it < n) & (keep != prev).any()
-
-    def body(keep, prev, it):
-        # the loop's outputs may not alias its inputs
-        return _sweep(overlap, valid, keep), keep.clone(), it + 1
-
-    it0 = torch.zeros((), dtype=torch.int64, device=valid.device)
-    keep, _, sweeps = while_loop(cond, body, (valid, ~valid, it0))
-    return keep, sweeps
-
-
-def nms_fixed(boxes, scores, iou_thresh: float) -> torch.Tensor:
-    """Exact greedy NMS as a fixed point of matrix sweeps.
+def nms_fixed(boxes, scores, iou_thresh: float, use_kernel: bool = True) -> torch.Tensor:
+    """Exact greedy NMS as a fixed point of sweeps, run on the device.
 
     Greedy keep is the fixed point of
         keep[i] <- valid[i] and not any_{j<i}(overlap[i, j] and keep[j])
-    starting from keep = valid; each sweep is one batched [N, N] x [N]
-    product. The loop stops when a sweep changes nothing (at most N sweeps,
-    where the result equals the sequential scan by induction).
+    starting from keep = valid; the loop stops when a sweep changes nothing
+    (at most N sweeps, where the result equals the sequential scan by
+    induction).
 
-    Run eagerly, it is a Python loop: each stop test reads one flag on the
-    host, and ``nms_fixed.sweeps`` counts the sweeps run, over all calls.
-    While ``torch.export`` traces it, it is the same sweep in a
-    ``while_loop`` (``_fixed_point_traced``), which the exported program
-    holds as one operator; that operator still reads the stop flag on the
-    host once per sweep, and its sweeps are not counted.
+    It is one call of the op ``yolo_ms_tpu_torch::nms_fixed``
+    (``ops/kernels/nms.py``): on the card one launch of the CUDA kernel,
+    which runs the whole loop on chip, as XLA runs the JAX ``while_loop``,
+    and reads nothing back on the host; on the CPU the plain fixed point of
+    matrix sweeps. ``torch.export`` records it as one node.
+    ``use_kernel=False`` runs the plain version (``nms_fixed_plain``) on any
+    device. ``nms_fixed.sweeps`` tallies, on the device, the max over the
+    batch of each call's sweeps (what the eager batch loop runs), over all
+    calls that are not being exported; set it to 0 to restart it.
 
-    boxes [B, N, 4] xyxy sorted by descending score; scores [B, N] (< 0
+    boxes [B, N, 4] xyxy sorted by descending score; scores [B, N] (<= 0
     marks padding). Returns keep [B, N] bool.
     """
-    n = boxes.shape[-2]
-    overlap, valid = _overlap_and_valid(boxes, scores, iou_thresh)
-    if torch.compiler.is_exporting():
-        return _fixed_point_traced(overlap, valid)[0]
-    keep = valid
-    for _ in range(n):
-        new = _sweep(overlap, valid, keep)
-        nms_fixed.sweeps += 1
-        if torch.equal(new, keep):
-            break
-        keep = new
+    fn = nms_kernel if use_kernel else nms_fixed_plain
+    keep, sweeps = fn(boxes, scores, iou_thresh)
+    if sweeps.numel() and not torch.compiler.is_exporting():
+        nms_fixed.sweeps = nms_fixed.sweeps + sweeps.amax()
     return keep
 
 

@@ -7,7 +7,8 @@ straight into the concatenated outputs; the top ``pre_nms_topk`` anchors are
 taken with ``torch.topk``,
 gated by confidence (strict ``sigmoid > conf_thresh``), their ltrb and class
 ids gathered, their anchors computed arithmetically from the flat index,
-then greedy NMS (``nms_fixed``, class-offset unless ``class_aware=False``),
+then greedy NMS (``nms_fixed``, one launch of the NMS kernel on the card;
+class-offset unless ``class_aware=False``),
 the top ``max_det``, and the invalid slots zeroed.
 
 What differs from the JAX function, by design:
@@ -51,12 +52,13 @@ def fused_postprocess(
     The maps may be views with any strides (a ``permute(0, 2, 3, 1)`` of the
     NCHW head output is read in place). NMS is per class unless
     ``class_aware=False`` or there is one class (the JAX rule).
-    ``use_kernel=False`` runs the plain torch version of ``select_scales``
-    on any device.
+    ``use_kernel=False`` runs the plain torch versions of ``select_scales``
+    and of the NMS fixed point on any device.
 
     It traces for ``torch.export`` as it is: every shape is static, the
-    constants below are built from those shapes, the select kernel is a
-    ``torch.library`` op and ``nms_fixed`` becomes a ``while_loop``.
+    constants below are built from those shapes, and the select kernel and
+    the NMS kernel are ``torch.library`` ops. On the card it reads nothing
+    back on the host.
     """
     split = isinstance(raw_maps[0], (tuple, list))
     nb = 4 * reg_max
@@ -88,16 +90,19 @@ def fused_postprocess(
     ltrb = gather_rows(ltrb_all, idx)
     classes = gather_rows(cls_id, idx)
 
-    # anchors and strides from the flat index: level bounds are static
+    # anchors and strides from the flat index: level bounds are static, so
+    # each level's width, first index and stride enter as Python scalars,
+    # with no copy from the host
     offs = np.cumsum([0] + [h * w for h, w in shapes])
-    lvl = torch.zeros_like(idx)
+    width_t = torch.full_like(idx, shapes[0][1])
+    base_t = torch.zeros_like(idx)
+    stride_k = torch.full(idx.shape, float(strides[0]), dtype=torch.float32, device=dev)
     for i in range(1, len(shapes)):
-        lvl += (idx >= int(offs[i])).long()
-    width_t = torch.tensor([w for _, w in shapes], dtype=idx.dtype, device=dev)[lvl]
-    base_t = torch.tensor(offs[:-1].tolist(), dtype=idx.dtype, device=dev)[lvl]
-    stride_k = torch.tensor(
-        [float(s) for s in strides[: len(shapes)]], dtype=torch.float32, device=dev
-    )[lvl][..., None]
+        upper = idx >= int(offs[i])
+        width_t = torch.where(upper, shapes[i][1], width_t)
+        base_t = torch.where(upper, int(offs[i]), base_t)
+        stride_k = torch.where(upper, float(strides[i]), stride_k)
+    stride_k = stride_k[..., None]
     local = idx - base_t
     ax = (local % width_t).float() + 0.5
     ay = torch.div(local, width_t, rounding_mode="floor").float() + 0.5
@@ -111,7 +116,7 @@ def fused_postprocess(
     shifted = boxes
     if class_aware and num_classes > 1:
         shifted = boxes + classes[..., None].float() * CLASS_OFFSET
-    keep = nms_fixed(shifted, scores, iou_thresh)
+    keep = nms_fixed(shifted, scores, iou_thresh, use_kernel=use_kernel)
     kept = torch.where(keep, scores, -1.0)
 
     kd = min(max_det, k)
