@@ -1,0 +1,7 @@
+"""Serving: device operations per predict_batch call."""
+
+from portbench.readers import ops_per_call
+
+
+def read(trace):
+    return ops_per_call(trace)

@@ -1,0 +1,7 @@
+"""Training: device ms per step enqueued in train_step/loss."""
+
+from portbench.readers import range_ms
+
+
+def read(trace):
+    return range_ms(trace, "train_step/loss")
