@@ -340,6 +340,7 @@ from yolo_ms_tpu_torch.tools.analyze import analyze
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer
 from yolo_ms_tpu_torch.train.trainer import Trainer, TrainState, make_train_step
+from yolo_ms_tpu_torch.utils import profiler
 from yolo_ms_tpu_torch.utils.checkpoint import (
     load_serving_state_dict,
     restore_checkpoint,
@@ -1095,6 +1096,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
             if checked:
                 spies.enter_context(spy.on())
                 spies.enter_context(nspy.on())
+                spies.enter_context(profiler.recording())  # nms_fixed.sweeps tallies
             for i, imgs in enumerate(batches):
                 for layout in ENTRY_LAYOUTS[:: 1 if i % 2 == 0 else -1]:
                     spy.layout = nspy.label = layout
@@ -1374,7 +1376,8 @@ def print_serving(r: dict) -> None:
           f"{r['maps_rel']:.3e} (bound {LAYOUT_MAPS_REL}); auto's maps contiguous NHWC; convs "
           f"under auto whose output is not channels-last: {strided_out or 'none'}; whose input "
           f"is not: {strided_in or 'none'}; uint8 H2D {r['h2d_ms']:.3f} ms; NMS sweeps "
-          f"{r['sweeps']} ({r['sweeps'] / (4 * SERVE_BATCHES):.1f}/batch, the device tally); "
+          f"{r['sweeps']} ({r['sweeps'] / (2 * SERVE_BATCHES):.1f}/batch of the checked pass, "
+          f"the device tally); "
           f"select and nms launches {r['launches']} each, every nms launch equal to the plain "
           f"version at conf 1e-5 and 0.25, worst ltrb err against plain {r['checked_err']:.3e}; "
           f"kernel-vs-plain tail box err {r['tail_err']:.3e}")
@@ -1649,8 +1652,9 @@ def phase_full_width(work: str) -> dict:
     # counted run of the training path
     zero_counts()
     nms_fixed.sweeps = 0
+    profiler.clear()
     t0 = time.perf_counter()
-    with _quiet(os.path.join(root, "fit.log")):
+    with _quiet(os.path.join(root, "fit.log")), profiler.recording():  # the fit/* spans
         trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
@@ -1674,7 +1678,12 @@ def phase_full_width(work: str) -> dict:
                              f"{f32_loss} (rel {bf16_rel:.3f})")
     step_ms = [s.elapsed_time(e) for s, e in events]
     med_ms = statistics.median(step_ms[2:])
-    waits = trainer.data_wait_s
+    # the loader's wait before each step: a fit/wait_batch span followed by its fit/step
+    recorded = profiler.spans()
+    waits = [(w.end_ns - w.start_ns) / 1e9 for w, nxt in zip(recorded, recorded[1:])
+             if w.name == "fit/wait_batch" and nxt.name == "fit/step"]
+    if len(waits) != FULL_STEPS:
+        raise AssertionError(f"6c: {len(waits)} loader waits recorded for {FULL_STEPS} steps")
     wait_ms = statistics.median(waits[2:]) * 1e3
     # end to end: every training image over the whole fit's wall time
     fit_img_s = FULL_STEPS * BATCH / fit_s
@@ -3074,7 +3083,8 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
         # where the program's extra device time goes: the same input through
         # the program and the eager function, whole and tail alone, profiled
         sweeps0 = int(nms_fixed.sweeps)
-        _Tail()(maps)
+        with profiler.recording():
+            _Tail()(maps)
         sweeps = int(nms_fixed.sweeps) - sweeps0
         prof = {"program": serving_profile(lambda: program(x0)),
                 "infer": serving_profile(lambda: predictor.infer(x0)),
@@ -3702,8 +3712,9 @@ def phase_benchmark(runs: list, full: dict) -> dict:
         zero_counts()
         nms_fixed.sweeps = 0
         t0 = time.perf_counter()
-        r = benchmark.run_benchmark(arch, BATCH, "e2e", IMG, NC, BENCH_K, BENCH_REPS,
-                                    device="cuda")
+        with profiler.recording():  # nms_fixed.sweeps tallies
+            r = benchmark.run_benchmark(arch, BATCH, "e2e", IMG, NC, BENCH_K, BENCH_REPS,
+                                        device="cuda")
         seconds = time.perf_counter() - t0
         launches, sweeps = launched(f"11a {arch}"), int(nms_fixed.sweeps)
         if launches != iters:
@@ -3749,8 +3760,9 @@ def phase_benchmark(runs: list, full: dict) -> dict:
     zero_counts()
     nms_fixed.sweeps = 0
     t0 = time.perf_counter()
-    r = benchmark.run_streaming("yolo-ms-xs", BATCH, IMG, NC, threads=BENCH_THREADS,
-                                depth=BENCH_DEPTH, device="cuda")
+    with profiler.recording():  # nms_fixed.sweeps tallies
+        r = benchmark.run_streaming("yolo-ms-xs", BATCH, IMG, NC, threads=BENCH_THREADS,
+                                    depth=BENCH_DEPTH, device="cuda")
     seconds = time.perf_counter() - t0
     n_batches = r["n_images"] // BATCH
     calls = 2 + 2 * n_batches

@@ -1,0 +1,7 @@
+"""Serving: host ms per call in the program's span serve/postprocess."""
+
+from portbench.spans import host_ms
+
+
+def read(trace):
+    return host_ms(trace, "serve/postprocess")

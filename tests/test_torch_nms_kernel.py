@@ -24,6 +24,7 @@ from yolo_ms_tpu.ops.nms import nms_fixed as jax_nms_fixed
 from yolo_ms_tpu.ops.nms import nms_greedy_scan as jax_greedy_scan
 from yolo_ms_tpu_torch.ops.kernels import nms as nms_kernels
 from yolo_ms_tpu_torch.ops.nms import CLASS_OFFSET, nms_fixed
+from yolo_ms_tpu_torch.utils import profiler
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -151,15 +152,19 @@ def test_iou_exactly_at_the_threshold(iou):
 
 
 def test_sweeps_tally_is_the_batch_max():
-    """``nms_fixed.sweeps`` adds each call's max over images, as a tensor
-    (on the card it stays on the device); ``use_kernel=False`` runs the
-    plain version and tallies the same."""
+    """While spans are on, ``nms_fixed.sweeps`` adds each call's max over
+    images, as a tensor (on the card it stays on the device);
+    ``use_kernel=False`` runs the plain version and tallies the same. With
+    spans off it tallies nothing."""
     boxes, scores = _case("chain", 0.45)
     b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
     _, per_image = nms_kernels.nms(b, s, 0.45)
     nms_fixed.sweeps = 0
     nms_fixed(b, s, 0.45)
-    nms_fixed(b, s, 0.45, use_kernel=False)
+    assert nms_fixed.sweeps == 0
+    with profiler.recording():
+        nms_fixed(b, s, 0.45)
+        nms_fixed(b, s, 0.45, use_kernel=False)
     assert isinstance(nms_fixed.sweeps, torch.Tensor)
     assert int(nms_fixed.sweeps) == 2 * int(per_image.max())
     assert int(per_image[1]) > int(per_image[0])

@@ -28,6 +28,7 @@ from yolo_ms_tpu_torch.ops.nms import (
     nms_greedy_scan,
 )
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
+from yolo_ms_tpu_torch.utils import profiler
 
 NC, REG_MAX = 80, 16
 NB = 4 * REG_MAX
@@ -173,7 +174,8 @@ def _nms_case(seed, b=3, n=48):
 def test_nms_fixed_matches_scan_and_jax(iou):
     boxes, scores = _nms_case(int(iou * 100))
     before = nms_fixed.sweeps
-    got = nms_fixed(torch.from_numpy(boxes), torch.from_numpy(scores), iou)
+    with profiler.recording():  # the sweeps tally counts while spans are on
+        got = nms_fixed(torch.from_numpy(boxes), torch.from_numpy(scores), iou)
     assert nms_fixed.sweeps > before
     scan = nms_greedy_scan(torch.from_numpy(boxes), torch.from_numpy(scores), iou)
     want = jax.vmap(jax_nms_fixed, in_axes=(0, 0, None))(
@@ -241,10 +243,11 @@ def test_traced_fixed_point_equals_eager(iou):
     assert not any("while_loop" in n for n in nodes)
 
     before = nms_fixed.sweeps
-    want = nms_fixed(boxes, scores, iou)
-    eager_sweeps = int(nms_fixed.sweeps - before)
-    tally = int(nms_fixed.sweeps)
-    got, keep, sweeps = program(boxes, scores)
+    with profiler.recording():  # the sweeps tally counts while spans are on
+        want = nms_fixed(boxes, scores, iou)
+        eager_sweeps = int(nms_fixed.sweeps - before)
+        tally = int(nms_fixed.sweeps)
+        got, keep, sweeps = program(boxes, scores)
     assert int(nms_fixed.sweeps) == tally  # the program counts none
     assert torch.equal(got, want) and torch.equal(keep, want)
     assert sweeps.dtype == torch.int32 and sweeps.shape == (3,)

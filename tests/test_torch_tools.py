@@ -448,22 +448,32 @@ def test_visualize_writes_the_jax_modules_files(tmp_path):
 
 
 def test_profiler_timer_and_trace(tmp_path):
-    from yolo_ms_tpu_torch.utils.profiler import Timer, trace
-
-    calls = []
+    """``trace`` writes the profiler's Chrome trace with the program's spans
+    of the block on a track of their own, on the profiler's time base."""
+    from yolo_ms_tpu_torch.utils.profiler import span, trace
 
     def f(i):
-        calls.append(i)
-        return torch.full((64, 64), float(i)) @ torch.ones(64, 64)
+        with span("outer", items=i), span("inner"):
+            return torch.full((64, 64), float(i)) @ torch.ones(64, 64)
 
-    stats = Timer(warmup=2, iters=5).measure(f)
-    assert calls == list(range(7)) and stats["iters"] == 5
-    assert 0 < stats["p10_s"] <= stats["median_s"] <= stats["p90_s"]
+    f(0)  # off: no span
     with trace(str(tmp_path / "prof")) as prof:
-        f(0)
+        with torch.profiler.record_function("ranged"):
+            f(1)
     assert any("mm" in e.key for e in prof.key_averages())
     with open(tmp_path / "prof" / "trace.json") as fh:
-        assert json.load(fh)["traceEvents"]
+        events = json.load(fh)["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert set(spans) == {"outer", "inner"}
+    outer, inner = spans["outer"], spans["inner"]
+    assert outer["args"]["items"] == 1 and inner["args"]["parent"] == outer["args"]["id"]
+    assert inner["args"]["call"] == outer["args"]["id"] and outer["pid"] == inner["pid"]
+    assert outer["pid"] not in {e.get("pid") for e in events if e.get("cat") != "program_span"
+                                and e.get("ph") == "X"}
+    ranged = next(e for e in events if e.get("name") == "ranged")
+    slack_us = 100.0
+    assert ranged["ts"] - slack_us <= outer["ts"]
+    assert outer["ts"] + outer["dur"] <= ranged["ts"] + ranged["dur"] + slack_us
 
 
 def test_cli_mains_parse(tmp_path):

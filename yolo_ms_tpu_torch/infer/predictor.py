@@ -34,6 +34,7 @@ from yolo_ms_tpu_torch.infer.program import ServingProgram
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables
 from yolo_ms_tpu_torch.models.registry import build_model
 from yolo_ms_tpu_torch.utils.device import full_f32, resolve_device
+from yolo_ms_tpu_torch.utils.profiler import span
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
 
@@ -119,14 +120,19 @@ class Predictor:
         ``tools.export --program`` exports, in the entry layout). Normalization
         runs on the device, so only uint8 pixels cross from the host."""
         precision = full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
-        with torch.inference_mode(), precision:
+        with span("serve/infer"), torch.inference_mode(), precision:
             return self._infer(images_u8)
 
     def predict_batch(self, images_u8: np.ndarray) -> dict:
-        """images_u8: [B, H, W, 3] uint8 at input_size. Returns host numpy."""
-        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
-        out = self.infer(x)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        """images_u8: [B, H, W, 3] uint8 at input_size. Returns host numpy.
+        The spans ``serve/upload``, ``serve/infer`` and ``serve/download``
+        (``utils/profiler.py``) nest in ``serve/predict_batch``."""
+        with span("serve/predict_batch", images=len(images_u8)):
+            with span("serve/upload", bytes=images_u8.nbytes):
+                x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
+            out = self.infer(x)
+            with span("serve/download", bytes=sum(v.nbytes for v in out.values())):
+                return {k: v.cpu().numpy() for k, v in out.items()}
 
     def _preprocess(self, image_rgb: np.ndarray):
         """Original-size RGB -> (model-input uint8, unmap meta): plain

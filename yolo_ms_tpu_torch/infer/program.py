@@ -22,6 +22,7 @@ from torch import nn
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.ops.postprocess import fused_postprocess
 from yolo_ms_tpu_torch.utils.device import resolve_device
+from yolo_ms_tpu_torch.utils.profiler import span
 
 
 class ServingProgram(nn.Module):
@@ -70,18 +71,24 @@ class ServingProgram(nn.Module):
         return x.contiguous(memory_format=self.memory_format)
 
     def forward(self, images_u8: torch.Tensor) -> dict:
-        raw = self.model(self.network_input(images_u8), split_head=True)
-        # NHWC views of the maps: the select kernel reads them in place
-        maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
-        return fused_postprocess(
-            maps,
-            self.num_classes,
-            self.reg_max,
-            conf_thresh=self.conf_thresh,
-            iou_thresh=self.iou_thresh,
-            max_det=self.max_det,
-            pre_nms_topk=self.pre_nms_topk,
-        )
+        """The spans ``serve/normalize``, ``serve/model`` and
+        ``serve/postprocess`` (``utils/profiler.py``), in turn."""
+        with span("serve/normalize"):
+            x = self.network_input(images_u8)
+        with span("serve/model"):
+            raw = self.model(x, split_head=True)
+        with span("serve/postprocess"):
+            # NHWC views of the maps: the select kernel reads them in place
+            maps = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in raw]
+            return fused_postprocess(
+                maps,
+                self.num_classes,
+                self.reg_max,
+                conf_thresh=self.conf_thresh,
+                iou_thresh=self.iou_thresh,
+                max_det=self.max_det,
+                pre_nms_topk=self.pre_nms_topk,
+            )
 
 
 def load_program(path: str, device=None) -> nn.Module:

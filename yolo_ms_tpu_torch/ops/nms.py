@@ -12,6 +12,7 @@ import torch
 from yolo_ms_tpu_torch.ops.iou import pairwise_iou_xyxy, xywh_to_xyxy
 from yolo_ms_tpu_torch.ops.kernels.nms import nms as nms_kernel
 from yolo_ms_tpu_torch.ops.kernels.nms import nms_fixed_plain
+from yolo_ms_tpu_torch.utils.profiler import spans_on
 
 # Class-offset stride: larger than any coordinate the model can produce, so
 # boxes of different classes never overlap after the shift.
@@ -47,16 +48,18 @@ def nms_fixed(boxes, scores, iou_thresh: float, use_kernel: bool = True) -> torc
     and reads nothing back on the host; on the CPU the plain fixed point of
     matrix sweeps. ``torch.export`` records it as one node.
     ``use_kernel=False`` runs the plain version (``nms_fixed_plain``) on any
-    device. ``nms_fixed.sweeps`` tallies, on the device, the max over the
-    batch of each call's sweeps (what the eager batch loop runs), over all
-    calls that are not being exported; set it to 0 to restart it.
+    device. While spans are on (``utils/profiler.py``: inside
+    ``recording()`` or under ``torch.profiler``), ``nms_fixed.sweeps``
+    tallies, on the device, the max over the batch of each call's sweeps
+    (what the eager batch loop runs), over the calls that are not being
+    exported; set it to 0 to restart it. Otherwise it enqueues nothing.
 
     boxes [B, N, 4] xyxy sorted by descending score; scores [B, N] (<= 0
     marks padding). Returns keep [B, N] bool.
     """
     fn = nms_kernel if use_kernel else nms_fixed_plain
     keep, sweeps = fn(boxes, scores, iou_thresh)
-    if sweeps.numel() and not torch.compiler.is_exporting():
+    if spans_on() and sweeps.numel() and not torch.compiler.is_exporting():
         nms_fixed.sweeps = nms_fixed.sweeps + sweeps.amax()
     return keep
 

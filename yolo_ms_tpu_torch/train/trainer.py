@@ -115,6 +115,7 @@ from yolo_ms_tpu_torch.utils.config import Config
 from yolo_ms_tpu_torch.utils.convert import flax_param_path, load_npz
 from yolo_ms_tpu_torch.utils.device import config_device, full_f32, resolve_device
 from yolo_ms_tpu_torch.utils.logging import MetricLogger
+from yolo_ms_tpu_torch.utils.profiler import span
 
 BATCH_KEYS = ("images", "boxes", "labels", "mask")
 
@@ -477,8 +478,6 @@ class Trainer:
         self._gt_buckets: tuple[int, ...] = tuple(
             sorted(b for b in (dcfg.gt_buckets or []) if 0 < b < dcfg.max_gt)
         )
-        # host seconds spent waiting for the loader, per step of the last fit
-        self.data_wait_s: list[float] = []
 
         # only the primary writes: every rank sees the same output directory
         self.output_dir = os.path.join(tcfg.log_dir, tcfg.experiment_name)
@@ -756,7 +755,6 @@ class Trainer:
         assert self.train_loader is not None, "no training dataset configured"
         tcfg = self.cfg.training
         steps_per_epoch = len(self.train_loader)
-        self.data_wait_s = []
         self._cursor = (self.start_epoch, self.start_step)
         previous = self._install_preemption_handler()
         self._say(f"Starting training for {tcfg.epochs} epochs ({steps_per_epoch} steps/epoch)")
@@ -783,18 +781,17 @@ class Trainer:
         batch_idx = first_step
         try:
             while True:
-                tw = time.perf_counter()
-                batch = next(batches, None)
-                self.data_wait_s.append(time.perf_counter() - tw)
+                with span("fit/wait_batch"):
+                    batch = next(batches, None)
                 if batch is None:
-                    self.data_wait_s.pop()
                     break
                 # in-flight window: a signal landing here is deferred to the
                 # commit point below (see _install_preemption_handler)
                 self._step_active = True
                 try:
-                    dev_batch = self._to_device(self._bucket_gt(batch))
-                    metrics = self._train_step(self.state, dev_batch)
+                    with span("fit/step"):
+                        dev_batch = self._to_device(self._bucket_gt(batch))
+                        metrics = self._train_step(self.state, dev_batch)
                     self._cursor = (epoch, batch_idx + 1)
                 except Exception:
                     # a collective that fails because a preempted peer has
