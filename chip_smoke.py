@@ -299,6 +299,7 @@ import torch
 from yolo_ms_tpu_torch.data import native_loader
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.data.decode import decode_and_resize, decode_image
+from yolo_ms_tpu_torch.infer import graphs
 from yolo_ms_tpu_torch.infer.layouts import ENTRY_LAYOUTS, memory_format_name, not_channels_last
 from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.infer.program import load_program
@@ -1087,6 +1088,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     # layouts in turns (the order flips from batch to batch).
     zero_counts()
     nms_fixed.sweeps = 0
+    tally = dict(graphs.tally)  # the warm-up captured each layout's forward
     spy = SelectSpy(only={"auto": MAIN_PATH_ROUTE})
     nspy = NmsSpy()
     host_ms = {layout: [] for layout in ENTRY_LAYOUTS}
@@ -1114,6 +1116,10 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     if total != 2 * len(ENTRY_LAYOUTS) * SERVE_BATCHES:
         raise AssertionError(f"{arch}: select launched {total} times in "
                              f"{2 * len(ENTRY_LAYOUTS) * SERVE_BATCHES} batches")
+    replays = {k: graphs.tally[k] - tally[k] for k in tally}
+    if replays != {"captures": 0, "replays": total}:
+        raise AssertionError(f"{arch}: {replays} in {total} batches of one shape, where every "
+                             "forward replays its graph")
     checked_routes = {layout: sorted({_route_names(r) for r, _ in calls})
                       for layout, calls in spy.calls.items()}
     checked_err = max(err for calls in spy.calls.values() for _, err in calls)

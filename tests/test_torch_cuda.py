@@ -3,8 +3,10 @@ against their plain versions (through their wrappers and their
 ``torch.library`` ops), the serving function with no host read
 (``torch.cuda.set_sync_debug_mode("error")``),
 the kernel tail of ``fused_postprocess`` against the plain tail, an
-exported serving program against ``Predictor.infer``, and channels-last
-serving (``entry_layouts="auto"``) against the default layout, on the card.
+exported serving program against ``Predictor.infer``, channels-last
+serving (``entry_layouts="auto"``) against the default layout, and the
+forward replayed from CUDA graphs (``infer/graphs.py``) against the eager
+serving function, on the card.
 They skip without a card. This file imports no JAX, so on
 a machine without JAX it runs with
 
@@ -625,6 +627,241 @@ def test_channels_last_serving_on_card(card, arch):
     assert torch.equal(got["classes"], want["classes"])
     torch.testing.assert_close(got["boxes"], want["boxes"], rtol=0.0, atol=1e-3)
     torch.testing.assert_close(got["scores"], want["scores"], rtol=1e-4, atol=1e-6)
+
+
+GOLDEN_DIRS = {"n": "trained", "yolo-ms-xs": "trained_yolo-ms-xs"}
+
+
+def _golden_predictor(arch, dtype=torch.bfloat16, deploy=True, conf=0.25, device="cuda"):
+    import os
+
+    from yolo_ms_tpu_torch.infer.predictor import Predictor
+    from yolo_ms_tpu_torch.utils.convert import load_npz
+
+    sd = load_npz(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                               GOLDEN_DIRS[arch], "weights.npz"))
+    return Predictor(arch, sd, num_classes=3, input_size=(160, 160), conf_thresh=conf,
+                     dtype=dtype, deploy=deploy, device=device)
+
+
+def _eager_serve(pred):
+    """A ``ServingProgram`` built directly on ``pred``'s model (its weights,
+    layout and settings): the eager serving function."""
+    import contextlib
+
+    from yolo_ms_tpu_torch.infer.program import ServingProgram
+    from yolo_ms_tpu_torch.utils.device import full_f32
+
+    program = ServingProgram(pred.model, pred.num_classes, pred.reg_max,
+                             conf_thresh=pred.conf_thresh, iou_thresh=pred.iou_thresh,
+                             max_det=pred.max_det, pre_nms_topk=pred.pre_nms_topk,
+                             dtype=pred.dtype)
+    program.memory_format = pred.serve.memory_format
+
+    def serve(x):
+        precision = full_f32() if pred.dtype == torch.float32 else contextlib.nullcontext()
+        with torch.inference_mode(), precision:
+            return program(x)
+    return serve
+
+
+def _images(batch, seed):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (batch, 160, 160, 3), dtype=np.uint8)).cuda()
+
+
+def _assert_same(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.fixture
+def deterministic():
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deploy", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["n", "yolo-ms-xs"])
+def test_replayed_infer_equals_eager_program(card, deterministic, arch, dtype, deploy):
+    """``Predictor.infer`` replaying its forward from a CUDA graph, at two
+    batch shapes in one predictor, equals the eager ``ServingProgram`` on the
+    same weights bit for bit; one capture per key, one replay per later
+    call."""
+    from yolo_ms_tpu_torch.infer import graphs
+
+    pred = _golden_predictor(arch, dtype, deploy, conf=1e-3)
+    assert pred.deploy == deploy
+    eager = _eager_serve(pred)
+    before = dict(graphs.tally)
+    for i, batch in enumerate([2, 1, 2, 1, 2]):
+        x = _images(batch, i)
+        _assert_same(pred.infer(x), eager(x))
+    assert graphs.tally["captures"] - before["captures"] == 2
+    assert graphs.tally["replays"] - before["replays"] == 3
+    assert len(pred.serve.model._graphs) == 2
+    assert all(graphs.graph_nodes(g) > 50 for g, _, _ in pred.serve.model._graphs.values())
+
+
+@pytest.mark.cuda
+def test_a_predictor_on_another_card_captures_on_its_card(card):
+    """A ``Predictor`` on the last card, called while card 0 is current,
+    captures and replays its forward on its own card: replayed calls on
+    other images equal the eager serving function there, and the graph
+    holds the forward's nodes. Skips with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from yolo_ms_tpu_torch.infer import graphs
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    current = torch.cuda.current_device()
+    torch.cuda.set_device(0)
+    try:
+        pred = _golden_predictor("n", conf=1e-3, device=dev)
+        eager = _eager_serve(pred)
+        for seed in range(3):
+            x = _images(2, seed).to(dev)
+            got = pred.infer(x)
+            assert torch.cuda.current_device() == 0
+            assert all(v.device == dev for v in got.values())
+            _assert_same(got, eager(x))
+        ((graph, static_in, _),) = pred.serve.model._graphs.values()
+        assert static_in.device == dev
+        assert graphs.graph_nodes(graph) > 50
+    finally:
+        torch.cuda.set_device(current)
+
+
+@pytest.mark.cuda
+def test_results_do_not_alias_the_graphs_outputs(card):
+    """The result dict of one call, held on the card through later calls
+    on other images, keeps its values; no result shares memory with the
+    graph's static input or outputs."""
+    pred = _golden_predictor("n", conf=1e-3)
+    eager = _eager_serve(pred)
+    x = [_images(2, seed) for seed in range(3)]
+    pred.infer(x[0])  # the capture
+    first = pred.infer(x[1])
+    want = {k: v.clone() for k, v in eager(x[1]).items()}
+    pred.infer(x[2])
+    pred.infer(x[0])
+    _assert_same(first, want)
+    ((_, static_in, static_out),) = pred.serve.model._graphs.values()
+    static = [static_in] + [m for pair in static_out for m in pair]
+    ranges = [(t.untyped_storage().data_ptr(),
+               t.untyped_storage().data_ptr() + t.untyped_storage().nbytes()) for t in static]
+    for k, v in first.items():
+        p = v.untyped_storage().data_ptr()
+        assert not any(a <= p < b for a, b in ranges), k
+
+
+@pytest.mark.cuda
+def test_a_model_with_a_spatial_group_is_never_captured(card):
+    """After ``set_spatial_group`` with a spatial axis of 2 the forward runs
+    eagerly (plain outside a sharded forward), with the same detections."""
+    from types import SimpleNamespace
+
+    from yolo_ms_tpu_torch.infer import graphs
+    from yolo_ms_tpu_torch.nn.blocks import set_spatial_group
+    from yolo_ms_tpu_torch.parallel.spatial import HeightShards
+
+    pred = _golden_predictor("n")
+    eager = _eager_serve(pred)
+    set_spatial_group(pred.model, SimpleNamespace(spatial=2, shards=HeightShards(None, [0, 1], 0)))
+    before = dict(graphs.tally)
+    for seed in range(2):
+        x = _images(2, seed)
+        _assert_same(pred.infer(x), eager(x))
+    assert graphs.tally == before
+    assert pred.serve.model._graphs == {}
+
+
+def _kernels_by_range(prof, range_name):
+    """The names of the kernels and memsets in ``prof`` enqueued inside the
+    ``record_function`` range ``range_name`` (by the host time of the
+    operator, else the runtime call, that enqueued each), and of all."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    op_at, runtime_at, ranges, kernels = {}, {}, [], []
+    for e in events:
+        if e.device_type() != DeviceType.CPU:
+            if not e.name().startswith(("Memcpy", range_name)):
+                kernels.append(e)
+            continue
+        if e.name().startswith("cu"):
+            runtime_at.setdefault(e.correlation_id(), e.start_ns())
+        else:
+            op_at.setdefault(e.correlation_id(), e.start_ns())
+        if e.name() == range_name:
+            ranges.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    inside = []
+    for k in kernels:
+        launch = op_at.get(k.linked_correlation_id(), runtime_at.get(k.correlation_id()))
+        if launch is not None and any(s <= launch <= e for s, e in ranges):
+            inside.append(_op_name(k.name()))
+    return inside, [_op_name(k.name()) for k in kernels]
+
+
+def _op_name(name):
+    # a memset node of a graph shows as "memset32", an eager one as "Memset (Device)"
+    return "memset" if name.lower().startswith("memset") else name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["n", "yolo-ms-xs"])
+def test_profile_of_a_replay_holds_the_forwards_kernels(card, arch):
+    """Under ``torch.profiler``, a replayed call enqueues every kernel and
+    memset of the eager forward, the same by name and number, inside a range
+    that forward hooks on ``Predictor.serve.model`` open and close (as the
+    benchmark's ``portbench/model``)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pred = _golden_predictor(arch)
+    x = _images(2, 0)
+    pred.infer(x)  # the capture
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        net_in = pred.serve.network_input(x)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eager_prof:
+        with record_function("test/model"), torch.inference_mode():
+            pred.model(net_in, split_head=True)
+        torch.cuda.synchronize()
+    want, _ = _kernels_by_range(eager_prof, "test/model")
+    assert len(want) > 50
+
+    opened = []
+
+    def enter(module, args):
+        r = record_function("test/model")
+        r.__enter__()
+        opened.append(r)
+
+    def leave(module, args, out):
+        opened.pop().__exit__(None, None, None)
+
+    hooks = [pred.serve.model.register_forward_pre_hook(enter),
+             pred.serve.model.register_forward_hook(leave)]
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pred.infer(x)
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    got, every = _kernels_by_range(prof, "test/model")
+    assert Counter(got) == Counter(want)
+    assert len(every) > len(got)  # the post-process's kernels, outside the range
 
 
 def _train_one_step(device, optimizer):

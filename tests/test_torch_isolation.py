@@ -59,6 +59,7 @@ def test_port_imports_no_jax_flax_triton_or_jax_package():
         "yolo_ms_tpu_torch.infer.predictor",
         "yolo_ms_tpu_torch.infer.program",
         "yolo_ms_tpu_torch.infer.layouts",
+        "yolo_ms_tpu_torch.infer.graphs",
         "yolo_ms_tpu_torch.utils.convert",
         "yolo_ms_tpu_torch.utils.checkpoint",
         "yolo_ms_tpu_torch.utils.profiler",

@@ -72,6 +72,7 @@ def test_predict_batch_records_its_seven_spans_as_one_call(pred, images):
         assert s.call == got[0].id
     counts = {s.name: s.counts for s in got}
     assert counts["serve/predict_batch"] == {"images": B}
+    assert counts["serve/model"] == {"replayed": 0}  # the CPU forward runs eagerly
     assert counts["serve/upload"] == {"bytes": B * HW * HW * 3}
     assert counts["serve/download"] == {"bytes": sum(v.nbytes for v in out.values())}
 
@@ -111,3 +112,16 @@ def test_the_buffer_keeps_the_last_spans():
     got = profiler.spans()
     assert len(got) == profiler.MAX_SPANS
     assert got[-1].id - got[0].id == profiler.MAX_SPANS - 1
+
+
+def test_annotate_sets_counts_on_the_innermost_span_of_its_name():
+    profiler.annotate("b", replayed=1)  # off: nothing to set, nothing recorded
+    assert profiler.spans() == []
+    with profiler.recording():
+        with profiler.span("a", n=0):
+            with profiler.span("b", replayed=0):
+                profiler.annotate("b", replayed=1)
+                profiler.annotate("a", n=5)  # not the innermost span
+            profiler.annotate("b", replayed=2)  # closed
+    counts = {s.name: s.counts for s in profiler.spans()}
+    assert counts == {"a": {"n": 0}, "b": {"replayed": 1}}

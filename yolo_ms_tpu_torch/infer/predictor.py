@@ -11,7 +11,10 @@ per-image JSON with the reference record schema.
 ``entry_layouts="auto"`` (the default, as in JAX) the network runs
 channels-last on the card (``infer/layouts.py``), so the batch enters it
 without a relayout; with ``"default"``, and on the CPU, it runs contiguous
-NCHW. It runs on the card unless ``device="cpu"`` is passed.
+NCHW. On the card the forward replays a CUDA graph captured at the first
+call of each batch shape (``infer/graphs.py``), so the host launches it
+once instead of op by op. It runs on the card unless ``device="cpu"`` is
+passed.
 ``predict_paths`` overlaps the host's decode and write with the device's
 batch, as the JAX package's does.
 """
@@ -29,6 +32,7 @@ import torch
 
 from yolo_ms_tpu_torch.data.augment import letterbox
 from yolo_ms_tpu_torch.data.decode import decode_and_resize, decode_image
+from yolo_ms_tpu_torch.infer.graphs import GraphedForward
 from yolo_ms_tpu_torch.infer.layouts import AutoLayoutInfer, check_entry_layouts
 from yolo_ms_tpu_torch.infer.program import ServingProgram
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables
@@ -54,6 +58,9 @@ class Predictor:
 
     f32 serving pins full-f32 convs and matmuls (no TF32); bf16 serving
     runs in bf16.
+
+    ``self.model`` is the model; ``self.serve.model`` is the
+    ``GraphedForward`` over it that ``infer`` calls (``infer/graphs.py``).
     """
 
     def __init__(
@@ -103,7 +110,7 @@ class Predictor:
         self.entry_layouts = entry_layouts
         self.pre_nms_topk = pre_nms_topk
         self.serve = ServingProgram(
-            self.model,
+            GraphedForward(self.model),
             num_classes,
             reg_max,
             conf_thresh=conf_thresh,

@@ -72,10 +72,12 @@ class ServingProgram(nn.Module):
 
     def forward(self, images_u8: torch.Tensor) -> dict:
         """The spans ``serve/normalize``, ``serve/model`` and
-        ``serve/postprocess`` (``utils/profiler.py``), in turn."""
+        ``serve/postprocess`` (``utils/profiler.py``), in turn;
+        ``serve/model`` counts ``replayed`` 0 unless the model call replays
+        a CUDA graph (``infer/graphs.py``)."""
         with span("serve/normalize"):
             x = self.network_input(images_u8)
-        with span("serve/model"):
+        with span("serve/model", replayed=0):
             raw = self.model(x, split_head=True)
         with span("serve/postprocess"):
             # NHWC views of the maps: the select kernel reads them in place

@@ -3,16 +3,20 @@
 - ``span(name, **counts)``: a span of the program's own host time, kept in
   memory. The serving path opens ``serve/predict_batch`` (``images``) ->
   ``serve/upload`` (``bytes``), ``serve/infer`` -> ``serve/normalize``,
-  ``serve/model``, ``serve/postprocess``, then ``serve/download``
-  (``bytes``); ``Trainer.fit`` opens ``fit/wait_batch`` and ``fit/step``
-  once per step. Spans are on inside ``recording()`` and while a
-  ``torch.profiler`` runs; off, ``span`` reads those two flags and returns
-  one shared no-op object (no clock read, no allocation of a span). On,
+  ``serve/model`` (``replayed``: 1 where ``infer/graphs.py`` replayed
+  the forward from a CUDA graph, else 0), ``serve/postprocess``, then
+  ``serve/download`` (``bytes``); ``Trainer.fit`` opens
+  ``fit/wait_batch`` and ``fit/step`` once per step. Spans are on inside
+  ``recording()`` and while a ``torch.profiler`` runs; off, ``span``
+  reads those two flags and returns one shared no-op object (no clock
+  read, no allocation of a span). On,
   each span stores its name, start and end on ``time.time_ns()`` (the
   clock on which the profiler stamps its events), its parent, its call id
   (the id of the outermost span open on its thread, shared by every span of
   one call), its thread and its counts, in a buffer of the last
-  ``MAX_SPANS`` spans. ``spans()`` reads the buffer, ``clear()`` empties it.
+  ``MAX_SPANS`` spans. ``annotate(name, **counts)`` sets counts on the
+  innermost open span from inside its block. ``spans()`` reads the buffer,
+  ``clear()`` empties it.
   The recorder calls no profiler API, so no span reaches the profiler's
   events, the device's timeline included.
 - ``trace(log_dir)``: a context manager around ``torch.profiler`` with the
@@ -23,9 +27,10 @@
   profiler, whose ``key_averages()`` can be read after the block.
 
 The JAX package's ``enable_compilation_cache`` (a persistent XLA cache) has
-no counterpart here: nothing is traced and compiled per shape. Its named
-substitute is the nvcc build directory ``yolo_ms_tpu_torch/build/``, which
-keeps the ``select`` kernel built from one run to the next.
+no counterpart here: nothing compiled per shape outlives the process (the
+serving forward's CUDA graphs, ``infer/graphs.py``, are captured in it). Its
+named substitute is the nvcc build directory ``yolo_ms_tpu_torch/build/``,
+which keeps the ``select`` kernel built from one run to the next.
 """
 
 from __future__ import annotations
@@ -95,6 +100,15 @@ def span(name: str, **counts):
     if not spans_on():
         return _NO_SPAN
     return Span(name, counts)
+
+
+def annotate(name: str, **counts) -> None:
+    """Set ``counts`` on the innermost span open on this thread if it is
+    called ``name``; nothing where spans are off, or another span is
+    innermost."""
+    stack = getattr(_open, "stack", None)
+    if stack and stack[-1].name == name:
+        stack[-1].counts.update(counts)
 
 
 @contextlib.contextmanager
