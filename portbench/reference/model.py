@@ -1,13 +1,24 @@
-"""The plain reference of the two benchmark architectures, in float32.
+"""The plain float32 reference of the benchmark's detectors: the pieces every
+model family shares, and ``Detector``, which builds a configuration's network
+from its family's own file.
 
-YOLOv8 (backbone, PAFPN neck, decoupled anchor-free head) and YOLO-MS
-(MSBlock stages with the heterogeneous kernel sizes 3/5/7/9, MS-SPPF and
-MSFusion neck, the same head), written from the published descriptions in
-plain ``torch`` operations. The module and parameter names are those of the
-benchmarked program's state_dicts (``conv``/``bn`` under every conv block,
-``m_{i}`` in C2f, ``block_{i}``/``branch_{i}`` in the MS stages,
-``box_{i}``/``cls_{i}`` in the head), so one seeded state_dict loads into
-both. Nothing here imports the program.
+A family's architecture lives in ``portbench/reference/arch/<family>.py``,
+chosen by the configuration's ``family`` key (``yolov8``, ``yolo-ms``). The
+file exposes ``build(cfg) -> nn.Module``, a network that takes normalized
+float32 images [B, 3, H, W] and returns, per level at strides 8/16/32, (box
+logits [B, 4*reg_max, H, W], class logits [B, nc, H, W]), with the
+attributes ``nc`` and ``reg_max``; ``Net`` assembles one. Its module and
+parameter names are those of the benchmarked program's state_dicts
+(``conv``/``bn`` under every conv block, ``box_{i}``/``cls_{i}`` in the
+head), so one seeded state_dict loads into both. A file may also declare
+``LEAVES``, the kinds of leaf that ``portbench/weights.py``'s shared rules do
+not draw: ``(match, fill)`` pairs, where ``match`` is a name suffix or a
+predicate ``(name, shape) -> bool`` and ``fill(flat, generator)`` fills, in
+place, one flat tensor that holds every leaf of the kind. A file writes
+attention as explicit matmuls and a softmax, never
+``F.scaled_dot_product_attention``, which ``forward_flops`` cannot count
+(torch's FLOP counter reads it as 0 on the CPU). Nothing here or in a family
+file imports the program.
 
 BatchNorm stays a BatchNorm: in eval mode it reads the running statistics,
 which is the folded conv of a deploy model worked out again. In train mode
@@ -22,21 +33,24 @@ as a network that keeps its activations in fp8 does, down to the maps the
 head returns. The gradient passes the rounding unchanged. This is the
 control that a correct comparison has to fail.
 
-Departures from the published models, which the program shares: the class
+A departure from the published models, which the program shares: the class
 branch of the head is ``num_classes`` wide (Ultralytics takes
-``max(c3, min(nc, 100))``), and C2f concatenates its chunks in reverse
-insertion order ([y_n, ..., y_1, x1, x2]).
+``max(c3, min(nc, 100))``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib.util
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+ARCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "arch")
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 STRIDES = (8, 16, 32)
@@ -92,37 +106,6 @@ class ConvBnSiLU(nn.Module):
         return F.silu(self.bn(self.conv(x)))
 
 
-class Bottleneck(nn.Module):
-    def __init__(self, c, shortcut):
-        super().__init__()
-        self.conv1 = ConvBnSiLU(c, c, 3)
-        self.conv2 = ConvBnSiLU(c, c, 3)
-        self.shortcut = shortcut
-
-    def forward(self, x):
-        y = self.conv2(self.conv1(x))
-        return y + x if self.shortcut else y
-
-
-class C2f(nn.Module):
-    def __init__(self, c_in, c_out, n, shortcut):
-        super().__init__()
-        self.mid, self.n = c_out // 2, n
-        self.conv1 = ConvBnSiLU(c_in, c_out, 1)
-        for i in range(n):
-            self.add_module(f"m_{i}", Bottleneck(self.mid, shortcut))
-        self.conv2 = ConvBnSiLU(c_out + n * self.mid, c_out, 1)
-
-    def forward(self, x):
-        x = self.conv1(x)
-        x1, x2 = x[:, : self.mid], x[:, self.mid :]
-        outs = [x1, x2]
-        for i in range(self.n):
-            x1 = getattr(self, f"m_{i}")(x1)
-            outs.insert(0, x1)
-        return self.conv2(torch.cat(outs, dim=1))
-
-
 def _pools(x, k):
     x1 = F.max_pool2d(x, k, 1, k // 2)
     x2 = F.max_pool2d(x1, k, 1, k // 2)
@@ -146,150 +129,20 @@ class SPPF(nn.Module):
         return self.conv2(torch.cat(_pools(x, self.k), dim=1))
 
 
-class InvertedBottleneck(nn.Module):
-    def __init__(self, c_in, c_out, k, expansion):
-        super().__init__()
-        hidden = int(c_out * expansion)
-        self.expand = ConvBnSiLU(c_in, hidden, 1)
-        self.dw = ConvBnSiLU(hidden, hidden, k, groups=hidden)
-        self.project = ConvBnSiLU(hidden, c_out, 1)
-
-    def forward(self, x):
-        return self.project(self.dw(self.expand(x)))
-
-
-class MSBlock(nn.Module):
-    def __init__(self, c_in, c_out, k, branches, branch_ratio, expansion):
-        super().__init__()
-        self.bc = max(8, int(c_out * branch_ratio / branches))
-        self.branches = branches
-        self.in_conv = ConvBnSiLU(c_in, self.bc * branches, 1)
-        for i in range(1, branches):
-            self.add_module(f"branch_{i}", InvertedBottleneck(self.bc, self.bc, k, expansion))
-        self.out_conv = ConvBnSiLU(self.bc * branches, c_out, 1)
-
-    def forward(self, x):
-        x = self.in_conv(x)
-        bc = self.bc
-        prev = x[:, :bc]
-        outs = [prev]
-        for i in range(1, self.branches):
-            prev = getattr(self, f"branch_{i}")(x[:, i * bc : (i + 1) * bc] + prev)
-            outs.append(prev)
-        return self.out_conv(torch.cat(outs, dim=1))
-
-
-class MSStage(nn.Module):
-    def __init__(self, c_in, c_out, k, n, ms):
-        super().__init__()
-        self.n = n
-        for i in range(n):
-            self.add_module(f"block_{i}", MSBlock(c_in if i == 0 else c_out, c_out, k,
-                                                  ms["branches"], ms["branch_ratio"],
-                                                  ms["expansion"]))
-
-    def forward(self, x):
-        for i in range(self.n):
-            x = getattr(self, f"block_{i}")(x)
-        return x
-
-
-class MSFusion(nn.Module):
-    def __init__(self, c_in, c_out):
-        super().__init__()
-        self.fuse = ConvBnSiLU(c_in, c_out, 1)
-
-    def forward(self, a, b, up=False):
-        if up:
-            a = F.interpolate(a, scale_factor=2, mode="nearest")
-        return self.fuse(torch.cat([a, b], dim=1))
-
-
-def _up(x):
+def up(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def _blocks(n: int, depth: float) -> int:
+def stage_blocks(n: int, depth: float) -> int:
     """Blocks of a stage of ``n`` at the depth multiple (Ultralytics' rule)."""
     return max(round(n * depth), 1)
 
 
-def _widths(cfg):
+def widths(cfg):
+    """The five stage widths of the YOLOv8 plan at the configuration's
+    width multiple, the last one scaled by ``last_stage_ratio``."""
     w, r = cfg["width_multiple"], cfg["last_stage_ratio"]
     return int(64 * w), int(128 * w), int(256 * w), int(512 * w), int(512 * w * r)
-
-
-class Backbone(nn.Module):
-    def __init__(self, cfg):
-        super().__init__()
-        c64, c128, c256, c512, c512r = _widths(cfg)
-        d = cfg["depth_multiple"]
-        self.conv0 = ConvBnSiLU(3, c64, 3, 2)
-        self.conv1 = ConvBnSiLU(c64, c128, 3, 2)
-        self.conv3 = ConvBnSiLU(c128, c256, 3, 2)
-        self.conv5 = ConvBnSiLU(c256, c512, 3, 2)
-        self.conv7 = ConvBnSiLU(c512, c512r, 3, 2)
-        if cfg["family"] == "yolov8":
-            self.stages = ("c2f_2", "c2f_4", "c2f_6", "c2f_8")
-            for name, c, n in zip(self.stages, (c128, c256, c512, c512r), (3, 6, 6, 3)):
-                self.add_module(name, C2f(c, c, _blocks(n, d), True))
-            self.sppf = SPPF(c512r, c512r, 5)
-        else:
-            ms = cfg["ms_block"]
-            self.stages = ("stage_2", "stage_4", "stage_6", "stage_8")
-            for name, c, k in zip(self.stages, (c128, c256, c512, c512r), ms["backbone_kernels"]):
-                self.add_module(name, MSStage(c, c, k, _blocks(3, d), ms))
-            self.ms_sppf = SPPF(c512r, c512r, 5, dw=True)
-
-    def forward(self, x):
-        s2, s4, s6, s8 = (getattr(self, n) for n in self.stages)
-        x = s2(self.conv1(self.conv0(x)))
-        p3 = s4(self.conv3(x))
-        p4 = s6(self.conv5(p3))
-        x = s8(self.conv7(p4))
-        top = self.sppf if hasattr(self, "sppf") else self.ms_sppf
-        return p3, p4, top(x)
-
-
-class Neck(nn.Module):
-    def __init__(self, cfg):
-        super().__init__()
-        _, _, c256, c512, c512r = _widths(cfg)
-        d = cfg["depth_multiple"]
-        self.v8 = cfg["family"] == "yolov8"
-        self.conv1 = ConvBnSiLU(c256, c256, 3, 2)
-        self.conv2 = ConvBnSiLU(c512, c512, 3, 2)
-        if self.v8:
-            n = _blocks(3, d)
-            self.c2f_1 = C2f(c512r + c512, c512, n, False)
-            self.c2f_2 = C2f(c512 + c256, c256, n, False)
-            self.c2f_3 = C2f(c256 + c512, c512, n, False)
-            self.c2f_4 = C2f(c512 + c512r, c512r, n, False)
-        else:
-            ms = cfg["ms_block"]
-            k8, k16, k32 = ms["neck_kernels"]
-            n = _blocks(3, d)
-            self.fuse_1 = MSFusion(c512r + c512, c512)
-            self.stage_1 = MSStage(c512, c512, k16, n, ms)
-            self.fuse_2 = MSFusion(c512 + c256, c256)
-            self.stage_2 = MSStage(c256, c256, k8, n, ms)
-            self.fuse_3 = MSFusion(c256 + c512, c512)
-            self.stage_3 = MSStage(c512, c512, k16, n, ms)
-            self.fuse_4 = MSFusion(c512 + c512r, c512r)
-            self.stage_4 = MSStage(c512r, c512r, k32, n, ms)
-
-    def forward(self, p3, p4, p5):
-        if self.v8:
-            mid = self.c2f_1(torch.cat([_up(p5), p4], dim=1))
-            out1 = self.c2f_2(torch.cat([_up(mid), p3], dim=1))
-            out2 = self.c2f_3(torch.cat([self.conv1(out1), mid], dim=1))
-            out3 = self.c2f_4(torch.cat([self.conv2(out2), p5], dim=1))
-            return out1, out2, out3
-        mid = self.stage_1(self.fuse_1(p5, p4, up=True))
-        out1 = self.stage_2(self.fuse_2(mid, p3, up=True))
-        out2 = self.stage_3(self.fuse_3(self.conv1(out1), mid))
-        out3 = self.stage_4(self.fuse_4(self.conv2(out2), p5))
-        return out1, out2, out3
 
 
 class Branch(nn.Module):
@@ -303,25 +156,58 @@ class Branch(nn.Module):
         return self.pred(self.conv2(self.conv1(x)))
 
 
-class Detector(nn.Module):
-    """image [B, 3, H, W] f32 (normalized) -> per scale (box logits [B,
-    4*reg_max, H, W], class logits [B, nc, H, W])."""
+class Head(nn.Module):
+    """YOLOv8's decoupled head over the neck's levels: per level a box branch
+    (``box_{i}``, 4 * reg_max wide) and a class branch (``cls_{i}``, nc
+    wide), each two 3x3 ConvBnSiLU and a 1x1 conv."""
 
-    def __init__(self, cfg):
+    def __init__(self, channels, nc, reg_max):
+        super().__init__()
+        for i, c in enumerate(channels):
+            self.add_module(f"box_{i}", Branch(c, 4 * reg_max, 4 * reg_max))
+            self.add_module(f"cls_{i}", Branch(c, nc, nc))
+
+    def forward(self, feats):
+        return [(getattr(self, f"box_{i}")(f), getattr(self, f"cls_{i}")(f))
+                for i, f in enumerate(feats)]
+
+
+class Net(nn.Module):
+    """backbone -> neck -> head under the names of the program's
+    state_dicts: image [B, 3, H, W] f32 (normalized) -> per level (box
+    logits [B, 4*reg_max, H, W], class logits [B, nc, H, W])."""
+
+    def __init__(self, cfg, backbone, neck, head):
         super().__init__()
         self.nc, self.reg_max = cfg["num_classes"], cfg["reg_max"]
-        self.backbone = Backbone(cfg)
-        self.neck = Neck(cfg)
-        _, _, c256, c512, c512r = _widths(cfg)
-        self.head = nn.Module()
-        for i, c in enumerate((c256, c512, c512r)):
-            self.head.add_module(f"box_{i}", Branch(c, 4 * self.reg_max, 4 * self.reg_max))
-            self.head.add_module(f"cls_{i}", Branch(c, self.nc, self.nc))
+        self.backbone, self.neck, self.head = backbone, neck, head
 
     def forward(self, x):
-        feats = self.neck(*self.backbone(x))
-        return [(getattr(self.head, f"box_{i}")(f), getattr(self.head, f"cls_{i}")(f))
-                for i, f in enumerate(feats)]
+        return self.head(self.neck(*self.backbone(x)))
+
+
+def families() -> list[str]:
+    """The families that have a reference file."""
+    return sorted(f[:-3] for f in os.listdir(ARCH) if f.endswith(".py"))
+
+
+@functools.cache
+def family(name: str):
+    """``portbench/reference/arch/<name>.py`` as a module (names may hold
+    hyphens)."""
+    if name not in families():
+        raise ValueError(f"no reference for the family {name!r}; "
+                         f"portbench/reference/arch has {families()}")
+    spec = importlib.util.spec_from_file_location(f"portbench_arch_{name.replace('-', '_')}",
+                                                  os.path.join(ARCH, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def Detector(cfg) -> nn.Module:  # noqa: N802 -- the name the drivers import
+    """The float32 reference network of ``cfg``, built by its family's file."""
+    return family(cfg["family"]).build(cfg)
 
 
 @contextlib.contextmanager
@@ -356,14 +242,26 @@ def head_prior(cfg, level: int) -> float:
 
 
 def forward_flops(cfg, image_hw) -> int:
-    """Forward FLOPs of one image (2 x the multiply-adds of every conv),
-    counted from the architecture on the meta device."""
+    """Forward FLOPs of one image, counted from the architecture on the meta
+    device: 2 x the multiply-adds of every conv and of every matmul
+    (``mm``, ``bmm``, ``addmm``), as torch's FLOP counter sees them.
+    Elementwise work, pooling, normalization and softmax count nothing. A
+    network that calls ``F.scaled_dot_product_attention`` raises, since
+    the counter reads it as 0 on the CPU."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with torch.device("meta"):
         model = Detector(cfg).eval()
         x = torch.empty(1, 3, *image_hw)
     counter = FlopCounterMode(display=False)
-    with counter, torch.no_grad():
+    with counter, _NoSdpa(), torch.no_grad():
         model(x)
     return counter.get_total_flops()
+
+
+class _NoSdpa(torch.overrides.TorchFunctionMode):
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is F.scaled_dot_product_attention:
+            raise ValueError("forward_flops cannot count F.scaled_dot_product_attention; "
+                             "write attention as explicit matmuls and a softmax")
+        return func(*args, **(kwargs or {}))

@@ -9,8 +9,10 @@ its configuration (``portbench/configs/<config>.json``) and its traffic
 the limits of the numbers that decide ``correct``. ``BENCHMARK.json`` also
 says which metrics the cell reports: with ``--trace 0`` its end-to-end
 metrics, with ``--trace 1`` its per-layer metrics, each read by
-``portbench/metrics/<metric>.py`` from the traced stretch. Adding a cell, a
-traffic mix or a metric adds files and entries; no file here changes.
+``portbench/metrics/<metric>.py`` from the traced stretch. The configuration's
+``family`` names its float32 reference, ``portbench/reference/arch/<family>.py``.
+Adding a cell, a traffic mix, a metric or a configuration of a new family adds
+files and entries; no file here changes.
 
 The last line of standard output is the result, one JSON object; facts of
 the card and the run go to standard error before it, and the numbers

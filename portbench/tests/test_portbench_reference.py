@@ -118,7 +118,7 @@ def test_one_train_step_is_the_programs():
 
 
 @pytest.mark.parametrize("cell,config", [("xs-serve-b32", "yolo-ms-xs"),
-                                         ("v8n-serve-b1", "yolov8-n")])
+                                         ("v8n-serve-b32", "yolov8-n")])
 def test_the_fp8_control_fails_the_serving_limits(cell, config):
     cfg = small(config)
     traffic = dict(run.load_json("traffic", f"{run_traffic(cell)}.json"), batch=2, pool=2,

@@ -11,6 +11,12 @@ then cut into the leaves:
 - the head's ``pred`` biases: box logits 1.0, class logits at their prior
   (about 5 objects per image over a level's cells);
 - ``num_batches_tracked``: 0.
+
+A family's reference file may declare further kinds in ``LEAVES`` (see
+``portbench/reference/model.py``); each is drawn in one call over its leaves,
+in the template's order, after the shared kinds, so that what a family
+declares never moves the bits of the shared kinds. A leaf that no rule
+covers raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import math
 
 import torch
 
-from portbench.reference.model import Detector, head_prior
+from portbench.reference.model import Detector, family, head_prior
 
 
 def template(cfg: dict) -> dict:
@@ -38,42 +44,52 @@ def _cut(flat: torch.Tensor, shapes: list) -> list:
     return out
 
 
+def _is_kernel(name: str, shape: tuple) -> bool:
+    return name.endswith(".weight") and len(shape) == 4
+
+
+# the shared kinds of leaf, in the order they are drawn: (name suffix or
+# predicate (name, shape) -> bool, fill(flat, generator)); a leaf takes the
+# first kind that matches it, these before a family's ``LEAVES``
+SHARED = (
+    (_is_kernel, lambda t, gen: t.normal_(0.0, 1.0, generator=gen)),
+    (".bn.weight", lambda t, gen: t.uniform_(0.5, 1.5, generator=gen)),
+    (".bn.bias", lambda t, gen: t.normal_(0.0, 0.1, generator=gen)),
+    (".running_mean", lambda t, gen: t.normal_(0.0, 0.1, generator=gen)),
+    (".running_var", lambda t, gen: t.uniform_(0.5, 2.0, generator=gen)),
+)
+
+
+def _matches(match, name: str, shape: tuple) -> bool:
+    return name.endswith(match) if isinstance(match, str) else match(name, shape)
+
+
 def seeded_state_dict(cfg: dict, seed: int, device, dtype=torch.float32) -> dict:
     """The state_dict of ``cfg``'s architecture drawn from ``seed`` on
     ``device``; floating leaves in ``dtype``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     tpl = template(cfg)
-    groups = {"kernel": [], "bn_scale": [], "bn_shift": [], "bn_mean": [], "bn_var": []}
+    kinds = SHARED + tuple(getattr(family(cfg["family"]), "LEAVES", ()))
+    groups = [[] for _ in kinds]
     for name, (shape, _) in tpl.items():
-        if name.endswith(".weight") and len(shape) == 4:
-            groups["kernel"].append(name)
-        elif name.endswith(".bn.weight"):
-            groups["bn_scale"].append(name)
-        elif name.endswith(".bn.bias"):
-            groups["bn_shift"].append(name)
-        elif name.endswith(".running_mean"):
-            groups["bn_mean"].append(name)
-        elif name.endswith(".running_var"):
-            groups["bn_var"].append(name)
+        if name.endswith("num_batches_tracked") or name.endswith(".pred.bias"):
+            continue
+        hit = next((i for i, (match, _) in enumerate(kinds) if _matches(match, name, shape)),
+                   None)
+        if hit is not None:
+            groups[hit].append(name)
     sd = {}
-
-    def draw(kind, fill):
-        names = groups[kind]
-        total = sum(math.prod(tpl[n][0]) for n in names)
-        flat = torch.empty(total, device=device)
-        fill(flat)
+    for names, (_, fill) in zip(groups, kinds):
+        if not names:
+            continue
+        flat = torch.empty(sum(math.prod(tpl[n][0]) for n in names), device=device)
+        fill(flat, gen)
         for n, t in zip(names, _cut(flat, [tpl[n][0] for n in names])):
             sd[n] = t
-
-    draw("kernel", lambda t: t.normal_(0.0, 1.0, generator=gen))
-    for n in groups["kernel"]:
+    for n in groups[0]:
         shape = tpl[n][0]
         sd[n] = sd[n] * (shape[1] * shape[2] * shape[3]) ** -0.5
-    draw("bn_scale", lambda t: t.uniform_(0.5, 1.5, generator=gen))
-    draw("bn_shift", lambda t: t.normal_(0.0, 0.1, generator=gen))
-    draw("bn_mean", lambda t: t.normal_(0.0, 0.1, generator=gen))
-    draw("bn_var", lambda t: t.uniform_(0.5, 2.0, generator=gen))
     for name, (shape, dt) in tpl.items():
         if name in sd:
             continue
