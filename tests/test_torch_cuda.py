@@ -864,6 +864,186 @@ def test_profile_of_a_replay_holds_the_forwards_kernels(card, arch):
     assert len(every) > len(got)  # the post-process's kernels, outside the range
 
 
+@pytest.mark.cuda
+def test_yolov12_replay_captures_its_attention(card, deterministic):
+    """yolov12-l through ``Predictor`` at bs 2, 640², bf16, channels-last:
+    the replayed forward's detections equal the eager serving function's
+    bit for bit; a replay's profile holds the attention kernels
+    (``ops/attention.py:KERNEL``) once a counted call, so the graph captured
+    SDPA; and ``serve/model`` counts the model's 16 attention calls (8 at
+    P4 in 4 areas, 8 at P5 in 1, 8 heads of 32) on every call."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_ms_tpu_torch.infer import graphs
+    from yolo_ms_tpu_torch.infer.predictor import Predictor
+    from yolo_ms_tpu_torch.models.registry import build_model, init_model
+    from yolo_ms_tpu_torch.ops import attention
+    from yolo_ms_tpu_torch.utils import profiler
+
+    model = init_model(build_model("yolov12-l", device="cpu"), torch.Generator().manual_seed(0))
+    pred = Predictor("yolov12-l", model.state_dict(), num_classes=80, input_size=(640, 640),
+                     conf_thresh=1e-3, dtype=torch.bfloat16, device="cuda")
+    eager = _eager_serve(pred)
+    x = [torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (2, 640, 640, 3), dtype=np.uint8)).cuda() for seed in range(3)]
+    want_out = [eager(xi) for xi in x]
+    before = dict(graphs.tally)
+    profiler.clear()
+    with profiler.recording():
+        got_out = [pred.infer(xi) for xi in x]
+    for got, want_i in zip(got_out, want_out):
+        _assert_same(got, want_i)
+    assert graphs.tally["captures"] - before["captures"] == 1
+    assert graphs.tally["replays"] - before["replays"] == 2
+    seqs4, seqs5, tokens = 2 * 4 * 8, 2 * 1 * 8, 400
+    want = {"attn_head_dim": 32, "attn_calls": 16,
+            "attn_rows": 8 * (seqs4 + seqs5) * tokens,
+            "attn_scores": 8 * (seqs4 + seqs5) * tokens**2}
+    spans = [s.counts for s in profiler.spans() if s.name == "serve/model"]
+    assert len(spans) == 3
+    assert [{k: v for k, v in c.items() if k != "replayed"} for c in spans] == [want] * 3
+    assert [c.get("replayed") for c in spans] == [0, 1, 1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.infer(x[0])
+        torch.cuda.synchronize()
+    _, names = _kernels_by_range(prof, "serve/model")
+    assert sum(bool(attention.KERNEL.search(n)) for n in names) == 16, sorted(set(names))
+    profiler.clear()
+
+
+# the relative norms of the error with which the port's bf16 area
+# attention and R-ELAN branch may follow the float32 reference's (see
+# ``yolov12_branch_gaps``). Read on an H100 over 8 seeds at bs 32, 640²:
+# the program's attention 0.015-0.035, its branch 0.064-0.170 (bf16's
+# rounding, grown through the 8 ABlocks of a stage); area 1 at P4 0.30-0.44
+# and 0.28-0.61; heads read as [(q|k|v), heads, d] 1.36-1.64 and 0.92-1.80.
+# Each limit lies between the program's worst and the controls' least.
+Y12_TOL = {"attn": 0.1, "branch": 0.22}
+Y12_CONTROLS = {"P4": ("area 1 at P4", "heads read as [(q|k|v), heads, d]"),
+                "P5": ("heads read as [(q|k|v), heads, d]",)}
+
+
+def _heads_as_qkv_major(stage):
+    """``stage`` with every ``qkv`` conv's output channels permuted so that
+    the port's ``[heads, (q | k | v), d]`` reading takes what a reading of
+    the channels as ``[(q | k | v), heads, d]`` would: the control of a
+    wrong head layout."""
+    import copy
+
+    from yolo_ms_tpu_torch.nn.blocks import AAttn
+
+    stage = copy.deepcopy(stage)
+    for m in stage.modules():
+        if isinstance(m, AAttn):
+            conv = m.qkv.conv
+            c, d = conv.out_channels // 3, conv.out_channels // 3 // m.heads
+            idx = torch.arange(3 * c, device=conv.weight.device).view(3, m.heads, d)
+            perm = idx.permute(1, 0, 2).reshape(-1)  # port channel -> source channel
+            with torch.no_grad():
+                conv.weight.copy_(conv.weight[perm])
+                conv.bias.copy_(conv.bias[perm])
+    return stage
+
+
+def _with_area(stage, area):
+    import copy
+
+    from yolo_ms_tpu_torch.nn.blocks import AAttn
+
+    stage = copy.deepcopy(stage)
+    for m in stage.modules():
+        if isinstance(m, AAttn):
+            m.area = area
+    return stage
+
+
+def yolov12_branch_gaps(level, seed, batch=32, img=640, device="cuda"):
+    """The R-ELAN branch of yolov12-l's attention stage at ``level`` (P4:
+    ``backbone.a2c2f_6``, area 4; P5: ``backbone.a2c2f_8``, area 1) as the
+    port serves it (BN folded, bf16, channels-last, SDPA) against the
+    float32 reference (``portbench/reference/arch/yolov12.py``: explicit
+    matmuls and softmax, IEEE float32), on the benchmark's seeded weights
+    and on the stage's input from the reference's backbone on uniform
+    images. Returns {"program" or a control's name: {"attn": the worst
+    |got - want| / |want| of the stage's 8 ``AAttn``, each given the
+    reference's input, "branch": that of the stage's ``conv2`` output,
+    before ``gamma``, given the stage's input}}."""
+    from portbench import run
+    from portbench.reference.model import Detector, family, ieee_f32
+    from portbench.weights import seeded_state_dict
+    from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
+    from yolo_ms_tpu_torch.models.registry import build_model
+
+    cfg = dict(run.load_json("configs", "yolov12-l.json"), image_size=[img, img])
+    sd = seeded_state_dict(cfg, seed, device)
+    ref = Detector(cfg).to(device).eval()
+    ref.load_state_dict(sd)
+    name = {"P4": "a2c2f_6", "P5": "a2c2f_8"}[level]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(batch, 3, img, img, generator=gen, device=device)
+    seen, attn_io = {}, {}
+
+    def keep(store, key, value):  # a hook that returns None changes nothing
+        store[key] = value
+
+    stage_ref = getattr(ref.backbone, name)
+    stage_ref.register_forward_pre_hook(lambda m, args: keep(seen, "x", args[0]))
+    stage_ref.conv2.register_forward_hook(lambda m, args, out: keep(seen, "want", out))
+    for key, m in stage_ref.named_modules():
+        if isinstance(m, family("yolov12").AAttn):
+            m.register_forward_hook(
+                lambda m, args, out, key=key: keep(attn_io, key, (args[0], out.double())))
+    with torch.no_grad(), ieee_f32():
+        ref.backbone(x)
+    assert len(attn_io) == 8
+
+    port = build_model("yolov12-l", device=device, deploy=True)
+    port.load_state_dict(fold_batchnorm(sd))
+    port.to(torch.bfloat16).to(memory_format=torch.channels_last)
+    stage = getattr(port.backbone, name)
+    controls = {"program": stage, "area 1 at P4": _with_area(stage, 1),
+                "heads read as [(q|k|v), heads, d]": _heads_as_qkv_major(stage)}
+
+    def bf16(t):
+        return t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def gap(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    gaps = {}
+    for key in ("program", *Y12_CONTROLS[level]):
+        mod, out = controls[key], {}
+        handle = mod.conv2.register_forward_hook(lambda m, args, o: keep(out, "got", o))
+        with torch.inference_mode():
+            mod(bf16(seen["x"]))
+            attns = dict(mod.named_modules())
+            worst = max(gap(attns[k](bf16(xin)), want) for k, (xin, want) in attn_io.items())
+        handle.remove()
+        if key == "program":
+            assert out["got"].is_contiguous(memory_format=torch.channels_last)
+        gaps[key] = {"attn": worst, "branch": gap(out["got"], seen["want"].double())}
+    return gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["P4", "P5"])
+def test_yolov12_attention_stage_in_bf16_follows_the_float32_reference(card, level):
+    """The card's bf16 FlashAttention on strided channels-last views, inside
+    the R-ELAN branch of each attention stage at the cell's shapes (bs 32,
+    640²: [128, 8, 400, 32] at P4, [32, 8, 400, 32] at P5), follows the
+    float32 reference within ``Y12_TOL``; a wrong attention (area 1
+    at P4; heads read as [(q|k|v), heads, d]) does not. The benchmark's
+    judge cannot see this branch (``gamma`` scales it by 0.01 in the
+    served maps), so this test is what holds the card's attention to an
+    independent reference."""
+    gaps = yolov12_branch_gaps(level, seed=2**31 + 20)
+    for part, tol in Y12_TOL.items():
+        assert gaps["program"][part] < tol, gaps
+        for control in Y12_CONTROLS[level]:
+            assert gaps[control][part] > tol, (control, gaps)
+
+
 def _train_one_step(device, optimizer):
     """One f32 train step of a seeded yolov8-n (nc=3, 96 px, batch 4) with
     clipping, weight decay and EMA, from the same CPU-drawn weights."""

@@ -41,6 +41,16 @@ def images():
     return np.random.default_rng(0).integers(0, 256, (B, HW, HW, 3), dtype=np.uint8)
 
 
+@pytest.fixture()
+def two_threads():
+    """Two intra-op threads for a full-width network: under a parallel test
+    run the default of one per core oversubscribes the host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def empty_buffer():
     profiler.clear()
@@ -125,3 +135,39 @@ def test_annotate_sets_counts_on_the_innermost_span_of_its_name():
             profiler.annotate("b", replayed=2)  # closed
     counts = {s.name: s.counts for s in profiler.spans()}
     assert counts == {"a": {"n": 0}, "b": {"replayed": 1}}
+
+
+def test_the_model_span_counts_yolov12s_attention(two_threads):
+    """A small yolov12-l (published widths, 96 px): ``serve/model`` carries
+    the shapes of the forward's attention calls as the float32 reference's
+    ``AAttn`` calls give them (traced on the meta device); yolov8-n's
+    carries none (above)."""
+    from portbench import run
+    from portbench.reference.model import Detector, family
+
+    from yolo_ms_tpu_torch.models.registry import build_model
+
+    cfg = dict(run.load_json("configs", "yolov12-l.json"), image_size=[96, 96])
+    calls = []
+    with torch.device("meta"):
+        ref = Detector(cfg).eval()
+        for m in ref.modules():
+            if isinstance(m, family("yolov12").AAttn):
+                m.register_forward_pre_hook(lambda mod, args: calls.append(
+                    (args[0].shape, mod.heads, mod.head_dim, mod.area)))
+        with torch.no_grad():
+            ref(torch.empty(B, 3, 96, 96))
+    want = {"attn_head_dim": 32, "attn_calls": 16, "attn_rows": 0, "attn_scores": 0}
+    assert len(calls) == 16
+    for (b, _, h, w), heads, d, area in calls:
+        assert d == 32
+        want["attn_rows"] += b * area * heads * (h * w // area)
+        want["attn_scores"] += b * area * heads * (h * w // area) ** 2
+    sd = build_model("yolov12-l", device="cpu").state_dict()
+    pred = Predictor("yolov12-l", sd, num_classes=80, input_size=(96, 96), batch_size=B,
+                     device="cpu")
+    x = np.random.default_rng(1).integers(0, 256, (B, 96, 96, 3), dtype=np.uint8)
+    with profiler.recording():
+        pred.predict_batch(x)
+    (model,) = [s for s in profiler.spans() if s.name == "serve/model"]
+    assert model.counts == {"replayed": 0, **want}

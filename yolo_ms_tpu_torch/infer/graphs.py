@@ -41,7 +41,10 @@ the captured graphs, whose kernels read the old weights' memory.
 
 ``tally`` counts the captures and the replays of this process; a call that
 captures counts as a capture alone. Inside the span ``serve/model``
-(``utils/profiler.py``) a replay sets the count ``replayed`` to 1.
+(``utils/profiler.py``) a replay sets the count ``replayed`` to 1, and
+every call sets the counts of the forward's attention
+(``ops/attention.py:counted``), as the capture counted them for a replay:
+none for a model without attention.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from yolo_ms_tpu_torch.ops.attention import counted
 from yolo_ms_tpu_torch.utils.profiler import annotate
 
 # The device types on which the forward is captured.
@@ -82,6 +86,7 @@ class GraphedForward(nn.Module):
         self.model = model
         self._sites = [m for m in model.modules() if hasattr(m, "spatial_rows")]
         self._graphs = {}  # key -> (graph, static input, static output)
+        self._counts = {}  # key -> the attention counts of the captured forward
         self._pool = None
 
     def _captures(self, x: torch.Tensor) -> bool:
@@ -91,7 +96,10 @@ class GraphedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, split_head: bool = False):
         if not self._captures(x):
-            return self.model(x, split_head=split_head)
+            with counted() as counts:
+                out = self.model(x, split_head=split_head)
+            annotate("serve/model", **counts)
+            return out
         key = (tuple(x.shape), x.stride(), x.dtype, x.device, split_head)
         entry = self._graphs.get(key)
         if entry is None:
@@ -101,6 +109,7 @@ class GraphedForward(nn.Module):
             entry[1].copy_(x)
             tally["replays"] += 1
             annotate("serve/model", replayed=1)
+        annotate("serve/model", **self._counts[key])
         with torch.cuda.device(x.device):  # the graph's card, whichever is current
             entry[0].replay()
         return entry[2]
@@ -127,7 +136,7 @@ class GraphedForward(nn.Module):
                 # thread_local: a thread that stages the next batch meanwhile
                 # (``Predictor.predict_paths``) does not void the capture
                 with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                      capture_error_mode="thread_local"):
+                                      capture_error_mode="thread_local"), counted() as counts:
                     static_out = self.model(static_in, split_head=split_head)
                 if graph_nodes(graph) == 0:
                     raise RuntimeError("the captured graph holds no nodes")
@@ -137,8 +146,10 @@ class GraphedForward(nn.Module):
                 f"serving graph: the capture of the forward failed for input {list(shape)} "
                 f"strides {list(stride)} {dtype} on {device} (split_head={split_head})"
             ) from e
+        self._counts[key] = counts
         return graph, static_in, static_out
 
     def _apply(self, fn, recurse=True):
         self._graphs.clear()  # their kernels read the weights' old memory
+        self._counts.clear()
         return super()._apply(fn, recurse)

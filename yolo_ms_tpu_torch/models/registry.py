@@ -1,6 +1,7 @@
 """Model zoo registry — build any supported detector by name.
 
-Port of ``yolo_ms_tpu/models/registry.py``: the same 20 names.
+Port of ``yolo_ms_tpu/models/registry.py``: the same 20 names, and
+``yolov12-l`` (``models/yolo12.py``), which the JAX package lacks.
 ``build_model`` returns the module in eval mode on the requested device
 (the card unless ``device="cpu"``), in train structure or, with
 ``deploy=True``, in BN-folded deploy structure. ``init_model`` draws fresh
@@ -18,6 +19,7 @@ from torch import nn
 from yolo_ms_tpu_torch.models.deploy import to_deploy_structure
 from yolo_ms_tpu_torch.models.ms import YOLOMS, YOLOv8MS
 from yolo_ms_tpu_torch.models.yolo import YOLOv8, _HeadBranch
+from yolo_ms_tpu_torch.models.yolo12 import YOLOv12, _SeparableBranch
 from yolo_ms_tpu_torch.utils.device import resolve_device
 
 # name -> (builder class, version arg, extra constructor kwargs)
@@ -42,6 +44,7 @@ MODEL_ZOO: dict[str, tuple[Any, str, dict]] = {
     "yolov8-ms-n": (YOLOv8MS, "n", {}),
     "yolov8-ms-s": (YOLOv8MS, "s", {}),
     "yolov8-ms-m": (YOLOv8MS, "m", {}),
+    "yolov12-l": (YOLOv12, "l", {}),
 }
 
 
@@ -103,6 +106,6 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
     for mod in model.modules():
-        if isinstance(mod, _HeadBranch):
+        if isinstance(mod, (_HeadBranch, _SeparableBranch)):
             mod.pred.bias.fill_(mod.bias_prior)
     return model

@@ -12,7 +12,7 @@ at the small resolution) is plain upsample + concat here.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -115,16 +115,22 @@ class _HeadBranch(nn.Module):
 
 
 class DetectHead(nn.Module):
-    """Decoupled anchor-free head: per scale a box branch to 4*reg_max
-    channels and a class branch to nc channels. Its widths follow the
-    input features (the JAX head's ``version`` field is unused there).
+    """Decoupled anchor-free head: per scale a box branch (two 3x3
+    ConvBnSiLU, 4*reg_max wide) and a class branch to nc channels, each
+    ending in the 1x1 ``pred``. The class branch is YOLOv8's, two 3x3
+    ConvBnSiLU ``num_classes`` wide (Ultralytics takes max(c0, min(nc,
+    100))), unless ``cls_branch(c_in, bias_prior)`` builds another:
+    YOLOv12's (``models/yolo12.py``) is depthwise-separable and max(c0,
+    min(nc, 100)) wide, c0 the first scale's input width. Its widths follow
+    the input features (the JAX head's ``version`` field is unused there).
     Height-sharded, each map is gathered to full height on every rank of
     the spatial group; the 1x1 ``pred`` needs no rows beyond its own."""
 
     spatial_rows = None
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
-                 reg_max: int = 16):
+                 reg_max: int = 16,
+                 cls_branch: Callable[[int, float], nn.Module] | None = None):
         super().__init__()
         self.num_classes = num_classes
         self.reg_max = reg_max
@@ -135,7 +141,9 @@ class DetectHead(nn.Module):
             cls_prior = math.log(5 / num_classes / (640 / DEFAULT_STRIDES[i]) ** 2)
             self.add_module(f"box_{i}", _HeadBranch(c, coords, coords, 1.0))
             self.add_module(
-                f"cls_{i}", _HeadBranch(c, num_classes, num_classes, cls_prior)
+                f"cls_{i}",
+                cls_branch(c, cls_prior) if cls_branch
+                else _HeadBranch(c, num_classes, num_classes, cls_prior),
             )
 
     def forward(self, feats, split: bool = False):

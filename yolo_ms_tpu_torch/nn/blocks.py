@@ -23,6 +23,9 @@ the empty shard of a level with fewer rows than ranks (every conv), holds a
 default; it exchanges rows only inside a sharded forward and runs its plain
 op otherwise.
 
+The YOLOv12 blocks at the end (``C3k``, ``C3k2``, ``AAttn``, ``ABlock``,
+``A2C2f``) have no JAX counterpart; they follow Ultralytics' modules.
+
 XLA-only constructs of the JAX package are not ported:
 - ``optimization_barrier`` / ``dw_isolation`` (fusion fences for XLA) are
   the identity here;
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_ms_tpu_torch.ops.attention import area_attention
 from yolo_ms_tpu_torch.parallel.distributed import all_reduce_sum
 from yolo_ms_tpu_torch.parallel.spatial import Rows
 
@@ -441,3 +445,117 @@ class MSFusion(nn.Module):
         if upsample_a:
             a = upsample2x(a, sharded_rows(self))
         return self.fuse(torch.cat([a, b], dim=1))
+
+
+# --------------------------------------------------------------------------
+# YOLOv12 family blocks (no JAX counterpart)
+# --------------------------------------------------------------------------
+
+
+class C3k(nn.Module):
+    """C3 with two 3x3/3x3 residual bottlenecks at half width: 1x1 ``conv1``
+    -> ``m_0`` -> ``m_1``, concatenated with 1x1 ``conv2`` of the input ->
+    1x1 ``conv3``."""
+
+    def __init__(self, c_in: int, features: int):
+        super().__init__()
+        mid = features // 2
+        self.conv1 = ConvBnSiLU(c_in, mid, 1)
+        self.conv2 = ConvBnSiLU(c_in, mid, 1)
+        self.conv3 = ConvBnSiLU(2 * mid, features, 1)
+        self.m_0 = Bottleneck(mid)
+        self.m_1 = Bottleneck(mid)
+
+    def forward(self, x):
+        y = self.m_1(self.m_0(self.conv1(x)))
+        return self.conv3(torch.cat([y, self.conv2(x)], dim=1))
+
+
+class C3k2(nn.Module):
+    """C2f's split with ``C3k`` blocks (YOLOv12 at scales m, l, x): 1x1 to
+    two halves of ``int(features * e)``, each block on the last output,
+    concat in Ultralytics' order [a, b, m_0(b), m_1(m_0(b)), ...] -> 1x1."""
+
+    def __init__(self, c_in: int, features: int, n: int, e: float = 0.5):
+        super().__init__()
+        self.mid = int(features * e)
+        self.n = n
+        self.conv1 = ConvBnSiLU(c_in, 2 * self.mid, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", C3k(self.mid, self.mid))
+        self.conv2 = ConvBnSiLU((2 + n) * self.mid, features, 1)
+
+    def forward(self, x):
+        y = list(self.conv1(x).split(self.mid, dim=1))
+        for i in range(self.n):
+            y.append(getattr(self, f"m_{i}")(y[-1]))
+        return self.conv2(torch.cat(y, dim=1))
+
+
+class AAttn(nn.Module):
+    """Area attention: ``qkv`` 1x1 (BN, no activation) -> softmax attention
+    per (image, area, head) over row-major runs of tokens
+    (``ops/attention.py``) -> + ``pe``, a 7x7 depthwise conv of v (BN, no
+    activation) -> ``proj`` 1x1 (BN, no activation). Height sharding does
+    not split it: a sharded forward raises."""
+
+    spatial_rows = None
+
+    def __init__(self, dim: int, heads: int, area: int = 1):
+        super().__init__()
+        self.heads = heads
+        self.area = area
+        self.qkv = ConvBnSiLU(dim, 3 * dim, 1, act=False)
+        self.proj = ConvBnSiLU(dim, dim, 1, act=False)
+        self.pe = ConvBnSiLU(dim, dim, 7, groups=dim, act=False)
+
+    def forward(self, x):
+        if sharded_rows(self):
+            raise RuntimeError("area attention reads every row of its map: it cannot run "
+                               "height-sharded")
+        out, v = area_attention(self.qkv(x), self.heads, self.area)
+        return self.proj(out + self.pe(v))
+
+
+class ABlock(nn.Module):
+    """``x + attn(x)``, then ``x + mlp(x)``: 1x1 to ``int(dim * mlp_ratio)``
+    with SiLU, 1x1 back with BN and no activation."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, heads, area)
+        self.mlp_in = ConvBnSiLU(dim, int(dim * mlp_ratio), 1)
+        self.mlp_out = ConvBnSiLU(int(dim * mlp_ratio), dim, 1, act=False)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp_out(self.mlp_in(x))
+
+
+class A2C2f(nn.Module):
+    """R-ELAN (YOLOv12): 1x1 ``conv1`` to ``features // 2``, ``n`` stages
+    on the last output, 1x1 ``conv2`` over the concat of ``conv1``'s output
+    and every stage's. With an ``area`` a stage is two ``ABlock`` of heads
+    of 32 channels, and the block returns ``x + gamma * conv2(...)``,
+    ``gamma`` a per-channel parameter (initially 0.01) that BN folding
+    leaves as it is; without, a stage is one ``C3k``."""
+
+    def __init__(self, c_in: int, features: int, n: int, area: int | None = None,
+                 mlp_ratio: float = 1.2):
+        super().__init__()
+        mid = features // 2
+        self.n = n
+        self.conv1 = ConvBnSiLU(c_in, mid, 1)
+        for i in range(n):
+            stage = (C3k(mid, mid) if area is None else
+                     nn.Sequential(*(ABlock(mid, mid // 32, mlp_ratio, area) for _ in range(2))))
+            self.add_module(f"m_{i}", stage)
+        self.conv2 = ConvBnSiLU((1 + n) * mid, features, 1)
+        self.gamma = None if area is None else nn.Parameter(torch.full((features,), 0.01))
+
+    def forward(self, x):
+        y = [self.conv1(x)]
+        for i in range(self.n):
+            y.append(getattr(self, f"m_{i}")(y[-1]))
+        y = self.conv2(torch.cat(y, dim=1))
+        return y if self.gamma is None else x + self.gamma[None, :, None, None] * y

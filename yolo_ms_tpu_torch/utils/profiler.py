@@ -4,7 +4,11 @@
   memory. The serving path opens ``serve/predict_batch`` (``images``) ->
   ``serve/upload`` (``bytes``), ``serve/infer`` -> ``serve/normalize``,
   ``serve/model`` (``replayed``: 1 where ``infer/graphs.py`` replayed
-  the forward from a CUDA graph, else 0), ``serve/postprocess``, then
+  the forward from a CUDA graph, else 0; for a model with attention,
+  YOLOv12, also ``attn_calls``, ``attn_rows``, ``attn_scores`` and
+  ``attn_head_dim``, the shapes of the forward's attention calls as
+  ``ops/attention.py:counted`` counts them, not FLOPs),
+  ``serve/postprocess``, then
   ``serve/download`` (``bytes``); ``Trainer.fit`` opens
   ``fit/wait_batch`` and ``fit/step`` once per step. Spans are on inside
   ``recording()`` and while a ``torch.profiler`` runs; off, ``span``
