@@ -27,6 +27,14 @@ that fails, and without a card. Phases, each printing one line:
       and K 4,096 (the global route), each timed beside its bound and the
       plain loop, a 1,024-box chain, a row of no valid box, one image, and
       IoUs exactly at the threshold;
+   c. the deploy convs' epilogue kernel (``conv_epilogue``, bias + SiLU or
+      the identity, in place) against ``conv_epilogue_plain`` computed in
+      f32 on the same inputs, within one rounding: bs 32 maps of 256
+      channels at 80x80 and YOLOv12-L's 307-wide MLP map at 40x40,
+      channels-last and NCHW, bf16 and f32; one launch each on the route
+      ``expected_route`` names; each timed (L2 flushed by a write) beside
+      its bound (y read and written once over the memory rate), the plain
+      version and torch's ``add_`` + ``F.silu``, the ops it replaced;
    then the card-only tests of ``tests/test_torch_cuda.py`` in a child
    pytest;
 4. the two trained golden fixtures through ``Predictor(device="cuda")`` in
@@ -254,7 +262,8 @@ three CTAs an SM; no class walk; no exp in the box sums) against the
 kernel as built, and those of ``nms.cu`` in ``NMS_VARIANTS`` (no skip of
 the quotient, whole rows dealt to threads, both, the overlap bits alone).
 
-The kernel JSON lists ``select`` and ``nms``. It counts their launches on
+The kernel JSON lists ``select``, ``nms`` and ``conv_epilogue``. It counts
+the first two's launches on
 every path (``launches_by_path``; each path's count is checked equal for
 the two kernels, since every post-process launches each once): the serving run of phase 5 (both layouts, both
 passes), the training run of
@@ -268,7 +277,16 @@ benchmark runs (``benchmark_e2e``) and streaming runs
 (``benchmark_streaming``; ``streaming_images``, 11e's two), phase 5b's
 LVIS-width serving (``serve_wide``), phase 5c's fine-tune serving
 (``serve_finetune``), 7f's unfolded serving
-(``serve_unfolded``) and 9e's NCHW program (``program_nchw``).
+(``serve_unfolded``) and 9e's NCHW program (``program_nchw``). On each
+of these paths of this process (each rank in its own), and wherever a
+path's count is taken, ``conv_epilogue.launches`` must have risen by one
+per deploy ``ConvBnSiLU`` forward that Python ran on the card (a global
+forward hook counts them) and, for an exported program, by the program's
+``conv_epilogue`` calls per call; phase 5 also counts the epilogue
+kernels of one replayed call in a profile, one per deploy conv. The
+``conv_epilogue`` entry gives this process's launches, each counted
+path's (``launches_by_path``, by label; a path checked batch by batch
+sums its batches) and 3c's errors and times.
 """
 
 from __future__ import annotations
@@ -306,7 +324,14 @@ from yolo_ms_tpu_torch.infer.program import load_program
 from yolo_ms_tpu_torch.infer.video import predict_video
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model, init_model
-from yolo_ms_tpu_torch.nn.blocks import BatchNorm2d, set_batch_norm_group, set_spatial_group
+from yolo_ms_tpu_torch.nn.blocks import (
+    BatchNorm2d,
+    ConvBnSiLU,
+    set_batch_norm_group,
+    set_spatial_group,
+)
+from yolo_ms_tpu_torch.ops.kernels import epilogue as epilogue_mod
+from yolo_ms_tpu_torch.ops.kernels.epilogue import conv_epilogue, conv_epilogue_plain
 from yolo_ms_tpu_torch.ops.kernels import select as select_mod
 from yolo_ms_tpu_torch.ops.kernels.select import (
     expected_routes,
@@ -423,25 +448,75 @@ def bound_of(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+# The deploy ``ConvBnSiLU`` forwards on card tensors that Python ran in
+# this process (a global forward hook, ``watch_deploy_convs``): each
+# launches the epilogue kernel once. A graph replay runs neither (phase 5
+# counts the kernels of a replay in a profile); an exported program
+# launches the kernel with no module forward (``program_epilogues``).
+DEPLOY_CONVS = {"run": 0}
+EPILOGUE = {"before": 0}  # epilogue launches of this process before the last zero_counts
+# each counted path's epilogue launches, by ``launched``'s label (a label
+# checked batch by batch sums its batches)
+EPILOGUE_BY_PATH: dict = {}
+
+
+def is_deploy_conv(module) -> bool:
+    return isinstance(module, ConvBnSiLU) and module.bn is None and module.conv.bias is not None
+
+
+def _deploy_conv_ran(module, args, output) -> None:
+    if (is_deploy_conv(module) and args and args[0].is_cuda
+            and torch._guards.detect_fake_mode(args) is None):  # not a torch.export trace
+        DEPLOY_CONVS["run"] += 1
+
+
+def watch_deploy_convs() -> None:
+    torch.nn.modules.module.register_module_forward_hook(_deploy_conv_ran)
+
+
+def deploy_convs(model) -> int:
+    """The deploy ``ConvBnSiLU`` modules of ``model``; a forward calls each once."""
+    return sum(is_deploy_conv(m) for m in model.modules())
+
+
+def program_epilogues(program) -> int:
+    """The ``conv_epilogue`` calls in a loaded program's graph: its launches a call."""
+    op = torch.ops.yolo_ms_tpu_torch.conv_epilogue.default
+    return sum(node.target is op for gm in program.modules()
+               if isinstance(gm, torch.fx.GraphModule) for node in gm.graph.nodes)
+
+
 def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a counted path."""
     select.launches = 0
     nms.launches = 0
+    EPILOGUE["before"] += conv_epilogue.launches
+    conv_epilogue.launches = 0
+    DEPLOY_CONVS["run"] = 0
 
 
-def counts() -> tuple[int, int]:
-    """The (select, nms) launch counts now, to difference later."""
-    return select.launches, nms.launches
+def counts() -> tuple[int, int, int, int]:
+    """The (select, nms, epilogue) launch counts and the deploy convs run
+    now, to difference later."""
+    return select.launches, nms.launches, conv_epilogue.launches, DEPLOY_CONVS["run"]
 
 
-def launched(label: str, since: tuple[int, int] = (0, 0)) -> int:
+def launched(label: str, since: tuple | None = None, program_convs: int = 0) -> int:
     """The ``select`` launches since ``since`` (``counts()`` taken before;
-    (0, 0) after ``zero_counts``), once the NMS kernel is found to have
+    None after ``zero_counts``), once the NMS kernel is found to have
     launched as often: every post-process call launches each kernel once,
-    so each path's count is both kernels'."""
-    sel, nm = select.launches - since[0], nms.launches - since[1]
+    so each path's count is both kernels'. The epilogue kernel must have
+    launched once per deploy conv that Python ran, and ``program_convs``
+    times per call (one ``select`` launch) of an exported program."""
+    base = since or (0, 0, 0, 0)
+    sel, nm = select.launches - base[0], nms.launches - base[1]
     if sel != nm:
         raise AssertionError(f"{label}: select launched {sel} times but nms {nm}")
+    epi, convs = conv_epilogue.launches - base[2], DEPLOY_CONVS["run"] - base[3]
+    if epi != convs + program_convs * sel:
+        raise AssertionError(f"{label}: the epilogue kernel launched {epi} times for {convs} "
+                             f"deploy convs run and {sel} calls of {program_convs} in a program")
+    EPILOGUE_BY_PATH[label] = epi + (EPILOGUE_BY_PATH.get(label, 0) if since else 0)
     return sel
 
 
@@ -772,12 +847,86 @@ def phase_nms_vs_plain(name: str) -> None:
           f"below: keep equal to the plain version and to {list(want.values())}")
 
 
+# 3c: the main path's shapes (yolo-ms-xs' and YOLOv12-L's P3 map at bs 32,
+# YOLOv12-L's 307-wide MLP map) in both layouts and dtypes
+EPILOGUE_CASES = (
+    ("P3 bs 32", (32, 256, 80, 80), torch.bfloat16, torch.channels_last, True),
+    ("P3 bs 32 identity", (32, 256, 80, 80), torch.bfloat16, torch.channels_last, False),
+    ("307-wide bs 32", (32, 307, 40, 40), torch.bfloat16, torch.channels_last, True),
+    ("P3 bs 32 NCHW", (32, 256, 80, 80), torch.bfloat16, torch.contiguous_format, True),
+    ("P3 bs 32 f32", (32, 256, 80, 80), torch.float32, torch.channels_last, True),
+    ("307-wide bs 32 f32 NCHW", (32, 307, 40, 40), torch.float32, torch.contiguous_format, True),
+)
+# act(y + b) in f32, rounded once to y's dtype: under one rounding (2**-8
+# of the value in bf16, 2**-24 in f32), with 1e-6 of the value for the
+# kernel's f32 SiLU against torch's
+EPILOGUE_REL = {torch.bfloat16: 2.0**-8 + 1e-6, torch.float32: 1e-6}
+
+
+def phase_epilogue_vs_plain(flush: torch.Tensor, name: str) -> dict:
+    """3c: ``conv_epilogue`` against ``conv_epilogue_plain`` in f32 on the
+    same inputs, one launch each on the route ``expected_route`` names;
+    timed beside the plain version, torch's ``add_`` + ``F.silu`` (the ops
+    it replaced) and its bound (y read and written once over the memory
+    rate). Returns the worst error and the first case's times."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    mem_rate, _ = peak_rates(name)
+    worst = worst_abs = 0.0
+    first = None
+    for label, shape, dtype, fmt, act in EPILOGUE_CASES:
+        y0 = (torch.randn(shape, generator=gen, device="cuda") * 3.0).to(dtype)
+        y0 = y0.contiguous(memory_format=fmt)
+        bias = torch.randn(shape[1], generator=gen, device="cuda").to(dtype)
+        want = conv_epilogue_plain(y0.float(), bias.float(), act)
+        y, n = y0.clone(), conv_epilogue.launches
+        conv_epilogue(y, bias, act)
+        route = conv_epilogue.last_route
+        if conv_epilogue.launches != n + 1 or route != epilogue_mod.expected_route(y0, bias):
+            raise AssertionError(f"3c {label}: {conv_epilogue.launches - n} launches on route "
+                                 f"{route}")
+        diff = (y.float() - want).abs()
+        err, abs_err = (diff / (want.abs() + 1e-6)).max().item(), diff.max().item()
+        parent = conv_epilogue_plain(y0, bias, act).float()
+        parent_err = ((parent - want).abs() / (want.abs() + 1e-6)).max().item()
+        if not err <= EPILOGUE_REL[dtype]:
+            raise AssertionError(f"3c {label}: relative error {err} against the f32 epilogue")
+        worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+        bias_view = bias.view(1, -1, 1, 1)
+        ms = cuda_ms(lambda: conv_epilogue(y, bias, act), 20, flush, cover=True)
+        plain_ms = cuda_ms(lambda: conv_epilogue_plain(y, bias, act), 20, flush, cover=True)
+        library_ms = cuda_ms(
+            lambda: F.silu(y.add_(bias_view)) if act else y.add_(bias_view), 20, flush,
+            cover=True)
+        bound_ms = 2 * y.numel() * y.element_size() / mem_rate * 1e3
+        print(f"phase 3c conv_epilogue {label} {list(shape)} {str(dtype)[6:]} "
+              f"{epilogue_mod.layout(y0)} {'SiLU' if act else 'identity'}: route {route}, "
+              f"relative error {err:.2e} (torch's ops in {str(dtype)[6:]} {parent_err:.2e}); "
+              f"{ms * 1e3:.1f} us (bound {bound_ms * 1e3:.1f} us by bytes, "
+              f"{bound_ms / ms * 100:.0f} % of it; L2 flushed by a write), plain "
+              f"{plain_ms * 1e3:.1f} us, add_ + F.silu {library_ms * 1e3:.1f} us")
+        if first is None:
+            first = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms}
+    return {"err": worst, "abs_err": worst_abs, **first}
+
+
+# the card tests that need two cards, deselected on a machine with one
+TWO_CARD_TESTS = "another_card"
+
+
 def phase_cuda_tests() -> None:
     """The card-only tests (``cuda`` marker) in a child pytest; it imports no
-    JAX, so it runs without the repo's conftest."""
+    JAX, so it runs without the repo's conftest. With one card the tests
+    that need two (``TWO_CARD_TESTS``) are deselected, and the line says
+    so; any skip fails the phase."""
+    one_card = torch.cuda.device_count() < 2
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
-         "-m", "cuda", os.path.join("tests", "test_torch_cuda.py")],
+         "-m", "cuda", *(("-k", f"not {TWO_CARD_TESTS}") if one_card else ()),
+         os.path.join("tests", "test_torch_cuda.py")],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
     )
     lines = proc.stdout.strip().splitlines()
@@ -785,7 +934,9 @@ def phase_cuda_tests() -> None:
     if proc.returncode != 0 or "skipped" in summary or "passed" not in summary:
         raise AssertionError(f"tests/test_torch_cuda.py: rc {proc.returncode}, {summary}\n"
                              f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    print(f"phase 3 tests/test_torch_cuda.py on the card: {summary}")
+    print(f"phase 3 tests/test_torch_cuda.py on the card: {summary}"
+          + (f" (one card: the tests matching {TWO_CARD_TESTS!r} deselected)" if one_card
+             else ""))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1065,6 +1216,19 @@ def forward_kernels(fn, top: int = 6) -> dict:
             "top": [(k[0][:70], k[1] / 1e3, k[2]) for k in kernels[:top]]}
 
 
+def epilogues_in_profile(fn) -> int:
+    """The epilogue kernels (``epilogue.py:KERNEL``) that ``torch.profiler``
+    records on the card in one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and epilogue_mod.KERNEL.search(ev.key))
+
+
 def serve_model(arch: str, flush: torch.Tensor) -> dict:
     """Phase 5 for one model: served by ``Predictor(entry_layouts="auto")``
     (the main path) and ``"default"`` in turns on the same batches."""
@@ -1120,6 +1284,17 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     if replays != {"captures": 0, "replays": total}:
         raise AssertionError(f"{arch}: {replays} in {total} batches of one shape, where every "
                              "forward replays its graph")
+    # the epilogue inside the replayed graph: one kernel a deploy conv, no
+    # launch from Python
+    replayed_epilogues = {}
+    for layout, p in predictors.items():
+        n = conv_epilogue.launches
+        found = epilogues_in_profile(lambda: p.infer(torch.from_numpy(batches[0]).cuda()))
+        if found != deploy_convs(p.model) or conv_epilogue.launches != n:
+            raise AssertionError(f"{arch} {layout}: {found} epilogue kernels in a replay of "
+                                 f"{deploy_convs(p.model)} deploy convs, "
+                                 f"{conv_epilogue.launches - n} launched from Python")
+        replayed_epilogues[layout] = found
     checked_routes = {layout: sorted({_route_names(r) for r, _ in calls})
                       for layout, calls in spy.calls.items()}
     checked_err = max(err for calls in spy.calls.values() for _, err in calls)
@@ -1223,6 +1398,7 @@ def serve_model(arch: str, flush: torch.Tensor) -> dict:
     auto = layouts["auto"]
     return {
         "arch": arch, "launches": total, "sweeps": sweeps, "host_ms": auto["host_ms"],
+        "replayed_epilogues": replayed_epilogues,
         "img_s": BATCH / auto["host_ms"] * 1e3, "fwd_ms": auto["fwd_ms"],
         "post_ms": auto["post_ms"], "infer_ms": auto["infer_ms"], "h2d_ms": h2d_ms,
         "select": sel["auto"], "scales": scales, "tail_err": tail_err, "maps_rel": maps_rel,
@@ -1386,7 +1562,8 @@ def print_serving(r: dict) -> None:
           f"the device tally); "
           f"select and nms launches {r['launches']} each, every nms launch equal to the plain "
           f"version at conf 1e-5 and 0.25, worst ltrb err against plain {r['checked_err']:.3e}; "
-          f"kernel-vs-plain tail box err {r['tail_err']:.3e}")
+          f"kernel-vs-plain tail box err {r['tail_err']:.3e}; epilogue kernels in one replayed "
+          f"call (profile) {r['replayed_epilogues']}, one a deploy conv")
     t = r["nms"]
     bound_ms, bound_by = bound_of(t["bytes_ms"], t["ops_ms"])
     print(f"phase 5 nms {r['arch']} main path (auto's last batch: bs {BATCH}, K {t['k']}, "
@@ -3046,6 +3223,10 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
     program = load_program(prog)
     if not_channels_last(program) or predictor.serve.memory_format != torch.channels_last:
         raise AssertionError("9b: the loaded program or the predictor is not channels-last")
+    prog_convs = program_epilogues(program)
+    if prog_convs != deploy_convs(predictor.model):
+        raise AssertionError(f"9b: the program calls the epilogue {prog_convs} times, the model "
+                             f"has {deploy_convs(predictor.model)} deploy convs")
     batches = serve_batches()
     x0 = torch.from_numpy(batches[0]).cuda()
 
@@ -3061,7 +3242,7 @@ def phase_program(work: str, flagship: dict, full: dict) -> dict:
         t0 = time.perf_counter()
         outs.append(serve(imgs))
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = launched("9b")
+    launches = launched("9b", program_convs=prog_convs)
     if launches != SERVE_BATCHES:
         raise AssertionError(f"9b: select launched {launches} times in {SERVE_BATCHES} "
                              f"program calls")
@@ -3210,6 +3391,9 @@ def phase_program_default(root: str, folded: str, flagship: dict, auto_ms: float
     if info["memory_format"] != "contiguous_format":
         raise AssertionError(f"9e: the NCHW program runs in {info['memory_format']}")
     nchw = load_program(prog_nchw)
+    nchw_convs = program_epilogues(nchw)
+    if nchw_convs != deploy_convs(flagship["predictor"].model):
+        raise AssertionError(f"9e: the program calls the epilogue {nchw_convs} times")
 
     def serve_nchw(imgs):
         with torch.inference_mode():
@@ -3230,7 +3414,7 @@ def phase_program_default(root: str, folded: str, flagship: dict, auto_ms: float
         if select.launches != n + 1 or select_scales.last_routes != [("tma", "tma")] * 3:
             raise AssertionError(f"9e: {select.launches - n} select launches, routes "
                                  f"{select_scales.last_routes}")
-    nchw_launches = launched("9e")
+    nchw_launches = launched("9e", program_convs=nchw_convs)
     box_err = score_err = 0.0
     for k, (imgs, got) in enumerate(zip(batches, outs)):
         check_outputs(got, "9e program")
@@ -3958,6 +4142,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    watch_deploy_convs()
     if args.preempt_child:
         return preempt_child(*args.preempt_child)
     if args.dp_child:
@@ -3999,6 +4184,7 @@ def main() -> int:
 
     worst = phase_kernel_vs_plain(flush, name)
     phase_nms_vs_plain(name)
+    epi = phase_epilogue_vs_plain(flush, name)
     phase_cuda_tests()
     phase_goldens()
 
@@ -4065,6 +4251,21 @@ def main() -> int:
         "bound_ms": nms_bound_ms,
         "bound_by": nms_bound_by,
         "library_ms": None,
+    }, {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "yolo_ms_tpu_torch/csrc/epilogue.cu",
+        "replaces": None,  # XLA fuses the deploy conv's bias and SiLU into the conv
+        "launches": EPILOGUE["before"] + conv_epilogue.launches,
+        "launches_by_path": EPILOGUE_BY_PATH,
+        "replayed_per_call": {r["arch"]: r["replayed_epilogues"] for r in runs},
+        "max_abs_err": epi["abs_err"],
+        "max_rel_err": epi["err"],
+        "ms": epi["ms"],
+        "plain_ms": epi["plain_ms"],
+        "bound_ms": epi["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": epi["library_ms"],
     }]
     print(f"nms kernel: {NMS_CHECKS['launches']} launches held against the plain version, "
           f"worst error {NMS_CHECKS['err']}")

@@ -871,7 +871,8 @@ def test_yolov12_replay_captures_its_attention(card, deterministic):
     bit for bit; a replay's profile holds the attention kernels
     (``ops/attention.py:KERNEL``) once a counted call, so the graph captured
     SDPA; and ``serve/model`` counts the model's 16 attention calls (8 at
-    P4 in 4 areas, 8 at P5 in 1, 8 heads of 32) on every call."""
+    P4 in 4 areas, 8 at P5 in 1, 8 heads of 32) and its 205 deploy convs,
+    each with its epilogue in the kernel, on every call."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -899,7 +900,8 @@ def test_yolov12_replay_captures_its_attention(card, deterministic):
     seqs4, seqs5, tokens = 2 * 4 * 8, 2 * 1 * 8, 400
     want = {"attn_head_dim": 32, "attn_calls": 16,
             "attn_rows": 8 * (seqs4 + seqs5) * tokens,
-            "attn_scores": 8 * (seqs4 + seqs5) * tokens**2}
+            "attn_scores": 8 * (seqs4 + seqs5) * tokens**2,
+            "conv_biased": 205, "conv_epilogues": 205}
     spans = [s.counts for s in profiler.spans() if s.name == "serve/model"]
     assert len(spans) == 3
     assert [{k: v for k, v in c.items() if k != "replayed"} for c in spans] == [want] * 3
@@ -1180,3 +1182,158 @@ def test_train_step_on_card_matches_cpu(card, optimizer):
                                      [cpu_state.opt_state["mu"]], [LR], sizes, 2 * LR)
         else:
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+
+
+EPILOGUE_SHAPES = {"small": (2, 5, 7), "big": (16, 96, 96)}  # (batch, H, W)
+EPILOGUE_LAYOUTS = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
+
+
+def _assert_one_rounding(got, y0, bias, act):
+    """``got`` is act(y0 + bias) computed in f32 and rounded once to y0's
+    dtype: within one bf16 rounding (2**-8 of the value), or f32 rounding."""
+    import torch.nn.functional as F
+
+    want = y0.float() + bias.float().view(1, -1, 1, 1)
+    want = F.silu(want) if act else want
+    tol = (2.0**-8, 1e-5) if y0.dtype == torch.bfloat16 else (1e-6, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("c", [80, 307, 3])
+@pytest.mark.parametrize("layout", list(EPILOGUE_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("size", list(EPILOGUE_SHAPES))
+def test_epilogue_kernel_matches_plain(card, size, dtype, layout, c, act):
+    """``csrc/epilogue.cu`` in place on a conv-output-like map: one launch,
+    the route ``expected_route`` names, act(y + b) within one rounding. The
+    big maps walk many grid strides (the carried channel and plane index)."""
+    from yolo_ms_tpu_torch.ops.kernels.epilogue import conv_epilogue, expected_route
+
+    b, h, w = EPILOGUE_SHAPES[size]
+    y = (torch.randn(b, c, h, w, generator=card, device="cuda") * 3.0).to(dtype)
+    y = y.contiguous(memory_format=EPILOGUE_LAYOUTS[layout])
+    bias = torch.randn(c, generator=card, device="cuda").to(dtype)
+    y0 = y.clone()
+    before = conv_epilogue.launches
+    assert conv_epilogue(y, bias, act) is y
+    assert conv_epilogue.launches == before + 1
+    assert conv_epilogue.last_route == expected_route(y, bias)
+    assert y.stride() == y0.stride()
+    _assert_one_rounding(y, y0, bias, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("layout", list(EPILOGUE_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_epilogue_kernel_on_an_unaligned_view(card, dtype, layout, offset):
+    """A map starting ``offset`` elements into its buffer (no 16-byte
+    boundary at its base) takes the element route, with a scalar head and
+    tail: every element of the view moves, none of the buffer around it."""
+    from yolo_ms_tpu_torch.ops.kernels.epilogue import conv_epilogue, expected_route
+
+    n, c, h, w = 2, 80, 9, 11
+    size = n * c * h * w
+    buf = torch.randn(offset + size + 5, generator=card, device="cuda").to(dtype)
+    flat = buf[offset:offset + size]
+    y = (flat.view(n, h, w, c).permute(0, 3, 1, 2) if layout == "channels_last"
+         else flat.view(n, c, h, w))
+    bias = torch.randn(c, generator=card, device="cuda").to(dtype)
+    outside, y0 = torch.cat([buf[:offset], buf[offset + size:]]), y.clone()
+    conv_epilogue(y, bias, True)
+    assert conv_epilogue.last_route == expected_route(y, bias) == "elements"
+    _assert_one_rounding(y, y0, bias, True)
+    assert torch.equal(torch.cat([buf[:offset], buf[offset + size:]]), outside)
+
+
+@pytest.mark.cuda
+def test_deploy_conv_takes_the_kernel(card, deterministic):
+    """A deploy ``ConvBnSiLU`` on the card runs its conv without the bias
+    and the kernel adds bias and SiLU within one rounding (one launch,
+    counted), with grad off or on; with grad on a backward raises."""
+    import torch.nn.functional as F
+
+    from yolo_ms_tpu_torch.nn.blocks import ConvBnSiLU
+    from yolo_ms_tpu_torch.ops.kernels.epilogue import conv_epilogue
+    from yolo_ms_tpu_torch.utils.profiler import counted
+
+    torch.manual_seed(0)
+    m = ConvBnSiLU(64, 307, 3)
+    m.to_deploy()
+    with torch.no_grad():
+        m.conv.bias.normal_()
+    m = m.to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+    x = torch.randn(4, 64, 40, 40, generator=card, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    for grad in (False, True):
+        before = conv_epilogue.launches
+        with torch.set_grad_enabled(grad), counted() as counts:
+            got = m(x)
+        assert counts == {"conv_biased": 1, "conv_epilogues": 1}
+        assert conv_epilogue.launches == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            _assert_one_rounding(got, F.conv2d(x, m.conv.weight, None, 1, 1), m.conv.bias,
+                                 True)
+        if grad:
+            with pytest.raises(RuntimeError, match="no backward"):
+                got.float().sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,convs", [("n", 57), ("yolo-ms-xs", 90)])
+def test_replayed_forward_runs_every_epilogue_in_the_graph(card, arch, convs):
+    """A replayed serving forward launches the epilogue kernel once per
+    deploy conv inside the graph (no Python call of the forward: the
+    launch counter stays), and ``serve/model`` carries ``conv_epilogues``
+    equal to ``conv_biased``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_ms_tpu_torch.ops.kernels.epilogue import KERNEL, conv_epilogue
+    from yolo_ms_tpu_torch.utils import profiler
+
+    pred = _golden_predictor(arch)
+    x = _images(2, 0)
+    pred.infer(x)  # warm-up and capture
+    torch.cuda.synchronize()
+    before = conv_epilogue.launches
+    profiler.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.infer(x)
+        torch.cuda.synchronize()
+    assert conv_epilogue.launches == before
+    (span,) = [s for s in profiler.spans() if s.name == "serve/model"]
+    profiler.clear()
+    assert span.counts["replayed"] == 1
+    assert span.counts["conv_biased"] == span.counts["conv_epilogues"] == convs
+    launched = [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() != DeviceType.CPU and KERNEL.search(e.name())]
+    assert len(launched) == convs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["xs-serve-b32", "v8n-serve-b32", "y12l-serve-b32"])
+def test_each_serving_cell_passes_its_judge(card, cell):
+    """Each serving configuration of the benchmark through the harness's
+    serving path (``portbench/drivers/serve.py``, a 1 s window over two
+    pooled batches of 32 at 640x640): the float32 reference's judge reads
+    every number under the cell's limits, and the forward ran its epilogues
+    in the kernel."""
+    import dataclasses
+
+    from portbench import run
+
+    from yolo_ms_tpu_torch.ops.kernels.epilogue import conv_epilogue
+
+    c, _, _ = run.load_cell(cell, 2**31 + 21, 1, False)
+    c = dataclasses.replace(c, traffic=dict(c.traffic, pool=2, sample=2),
+                            say=lambda *a: None)
+    before = conv_epilogue.launches
+    out = run.load_module("drivers", "serve").run(c, torch.cuda.get_device_name(0))
+    assert conv_epilogue.launches > before
+    for key, limit in c.limits.items():
+        assert out["checks"][key] <= limit, (key, out["checks"])

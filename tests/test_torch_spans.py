@@ -82,7 +82,8 @@ def test_predict_batch_records_its_seven_spans_as_one_call(pred, images):
         assert s.call == got[0].id
     counts = {s.name: s.counts for s in got}
     assert counts["serve/predict_batch"] == {"images": B}
-    assert counts["serve/model"] == {"replayed": 0}  # the CPU forward runs eagerly
+    # the CPU forward runs eagerly; yolov8-n's 57 BN-folded convs take torch's bias add
+    assert counts["serve/model"] == {"replayed": 0, "conv_biased": 57, "conv_epilogues": 0}
     assert counts["serve/upload"] == {"bytes": B * HW * HW * 3}
     assert counts["serve/download"] == {"bytes": sum(v.nbytes for v in out.values())}
 
@@ -140,8 +141,8 @@ def test_annotate_sets_counts_on_the_innermost_span_of_its_name():
 def test_the_model_span_counts_yolov12s_attention(two_threads):
     """A small yolov12-l (published widths, 96 px): ``serve/model`` carries
     the shapes of the forward's attention calls as the float32 reference's
-    ``AAttn`` calls give them (traced on the meta device); yolov8-n's
-    carries none (above)."""
+    ``AAttn`` calls give them (traced on the meta device), beside its
+    BN-folded convs; yolov8-n's carries no attention counts (above)."""
     from portbench import run
     from portbench.reference.model import Detector, family
 
@@ -170,4 +171,5 @@ def test_the_model_span_counts_yolov12s_attention(two_threads):
     with profiler.recording():
         pred.predict_batch(x)
     (model,) = [s for s in profiler.spans() if s.name == "serve/model"]
-    assert model.counts == {"replayed": 0, **want}
+    # and its 205 BN-folded convs (141 with SiLU), on the CPU none in the kernel
+    assert model.counts == {"replayed": 0, "conv_biased": 205, "conv_epilogues": 0, **want}

@@ -21,7 +21,7 @@ from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model, count_params
 from yolo_ms_tpu_torch.models.yolo12 import YOLOv12
 from yolo_ms_tpu_torch.nn.blocks import AAttn
-from yolo_ms_tpu_torch.ops.attention import counted
+from yolo_ms_tpu_torch.utils.profiler import counted
 
 SEED = 2**31 + 11
 TOL = 1e-4  # absolute, on the head's maps: 50x the float32 disagreement measured

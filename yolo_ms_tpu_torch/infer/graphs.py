@@ -42,9 +42,13 @@ the captured graphs, whose kernels read the old weights' memory.
 ``tally`` counts the captures and the replays of this process; a call that
 captures counts as a capture alone. Inside the span ``serve/model``
 (``utils/profiler.py``) a replay sets the count ``replayed`` to 1, and
-every call sets the counts of the forward's attention
-(``ops/attention.py:counted``), as the capture counted them for a replay:
-none for a model without attention.
+every call sets what the forward's modules count
+(``utils/profiler.py:counted``: its BN-folded convs and their epilogues,
+its attention calls), as the capture counted them for a replay: none for a
+model that counts nothing. A capture runs on the card under inference
+mode, so a replay's ``conv_epilogues`` equal its ``conv_biased``: every
+deploy conv's bias and SiLU run in the epilogue kernel inside the graph
+(its first launch, and its build, in the eager warm-up).
 """
 
 from __future__ import annotations
@@ -52,8 +56,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yolo_ms_tpu_torch.ops.attention import counted
-from yolo_ms_tpu_torch.utils.profiler import annotate
+from yolo_ms_tpu_torch.utils.profiler import annotate, counted
 
 # The device types on which the forward is captured.
 CAPTURED_ON = ("cuda",)
@@ -86,7 +89,7 @@ class GraphedForward(nn.Module):
         self.model = model
         self._sites = [m for m in model.modules() if hasattr(m, "spatial_rows")]
         self._graphs = {}  # key -> (graph, static input, static output)
-        self._counts = {}  # key -> the attention counts of the captured forward
+        self._counts = {}  # key -> the counts of the captured forward
         self._pool = None
 
     def _captures(self, x: torch.Tensor) -> bool:

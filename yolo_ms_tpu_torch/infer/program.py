@@ -9,8 +9,9 @@ file that holds the weights, the graph and the calls of the ``select`` and
 ``nms_fixed`` ops.
 
 ``load_program`` serves such a file without the model code: it imports only
-the modules that register the ``select`` and ``nms_fixed`` ops (and build
-their kernels at first use on the card), never a
+the modules that register the ``select``, ``nms_fixed`` and (for a program
+exported on the card, whose deploy convs call it) ``conv_epilogue`` ops, and
+build their kernels at first use on the card, never a
 ``yolo_ms_tpu_torch.models`` module.
 """
 
@@ -99,8 +100,9 @@ def load_program(path: str, device=None) -> nn.Module:
     parameters frozen. ``device`` resolves as everywhere in the port (the
     card unless ``"cpu"``); it must be the device the program was exported
     on, which its weights and graph are tied to."""
-    # register yolo_ms_tpu_torch::select_scales and ::nms_fixed, which the
-    # program calls
+    # register yolo_ms_tpu_torch::select_scales, ::nms_fixed and
+    # ::conv_epilogue, which the program calls
+    import yolo_ms_tpu_torch.ops.kernels.epilogue  # noqa: F401
     import yolo_ms_tpu_torch.ops.kernels.nms  # noqa: F401
     import yolo_ms_tpu_torch.ops.kernels.select  # noqa: F401
 

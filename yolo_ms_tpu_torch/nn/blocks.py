@@ -13,6 +13,12 @@ variance (as torch does) and also updates ``running_var`` with it (torch's
 Deploy structure (BN folded into the conv) is a property of the module,
 not a global context: ``ConvBnSiLU.to_deploy()`` gives the conv a bias and
 drops its BatchNorm (``models/deploy.py`` folds the state_dict to match).
+On the card a deploy ``ConvBnSiLU`` runs its conv without the bias and
+adds the bias and SiLU in one pass, in place (``ops/kernels/epilogue.py``;
+it has no backward); off the card it runs torch's conv with its bias, then
+``F.silu``. Inside ``utils/profiler.py:counted()`` it counts
+``conv_biased`` (deploy convs run) and ``conv_epilogues`` (those whose
+epilogue ran in the kernel).
 
 Height sharding (``set_spatial_group``): the JAX package splits the image
 height over a mesh axis and GSPMD inserts the halo exchanges. Here every
@@ -41,8 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolo_ms_tpu_torch.ops.attention import area_attention
+from yolo_ms_tpu_torch.ops.kernels.epilogue import conv_epilogue
 from yolo_ms_tpu_torch.parallel.distributed import all_reduce_sum
 from yolo_ms_tpu_torch.parallel.spatial import Rows
+from yolo_ms_tpu_torch.utils.profiler import add_counts
 
 # BatchNorm constants of the reference (components.py:73).
 BN_EPS = 1e-3
@@ -184,12 +192,21 @@ def sharded_rows(module: nn.Module, i: int = 0) -> Rows | None:
     return rows[i] if rows is not None and rows[i].active else None
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose call can leave its bias out (``bias=False``), for
+    a caller that adds it in its own epilogue; hooks fire either way."""
+
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        return self._conv_forward(x, self.weight, self.bias if bias else None)
+
+
 class ConvBnSiLU(nn.Module):
     """Conv2d(bias=False) -> BatchNorm2d(eps 1e-3) -> SiLU (optional).
 
     Grouped and depthwise convs are plain ``groups=``; padding is k//2 on
     every side, stride 1 or 2, as in the JAX block. After ``to_deploy()``
-    the conv carries a bias and there is no BatchNorm.
+    the conv carries a bias and there is no BatchNorm; the module docstring
+    says where its bias and SiLU run.
     """
 
     spatial_rows = None
@@ -204,7 +221,7 @@ class ConvBnSiLU(nn.Module):
         act: bool = True,
     ):
         super().__init__()
-        self.conv = nn.Conv2d(
+        self.conv = Conv2d(
             c_in,
             features,
             kernel_size,
@@ -230,6 +247,11 @@ class ConvBnSiLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = sharded_rows(self)
+        if self.bn is None and self.conv.bias is not None:  # deploy structure
+            add_counts(conv_biased=1, conv_epilogues=int(x.is_cuda))
+            if x.is_cuda:
+                y = rows.conv2d(self.conv, x, bias=False) if rows else self.conv(x, bias=False)
+                return conv_epilogue(y, self.conv.bias, self.act)
         x = rows.conv2d(self.conv, x) if rows else self.conv(x)
         if self.bn is not None:
             x = self.bn(x)

@@ -21,50 +21,34 @@ runs one known kernel a call: ``KERNEL`` matches it (FlashAttention-2's
 forward; split over the keys, as small batches may be, a second kernel,
 also matched by ``KERNELS``, combines the splits).
 
-``counted()`` counts the calls made inside it on this thread, as the span
-``serve/model`` carries them (``utils/profiler.py``, ``infer/graphs.py``):
-``attn_calls``; ``attn_rows``, the sum over calls of sequences x tokens,
-where sequences = images x runs x heads; ``attn_scores``, the sum of
-sequences x tokens**2; and ``attn_head_dim``.
+Each call is counted inside ``utils/profiler.py:counted()``, as the span
+``serve/model`` carries the counts (``infer/graphs.py``): ``attn_calls``;
+``attn_rows``, the sum over calls of sequences x tokens, where sequences =
+images x runs x heads; ``attn_scores``, the sum of sequences x tokens**2;
+and ``attn_head_dim``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import re
-import threading
 
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from yolo_ms_tpu_torch.utils.profiler import add_counts, open_counts
+
 # the kernel that one call launches on the card, once, and every kernel of a call
 KERNEL = re.compile(r"\bflash_fwd(_splitkv)?_kernel\b")
 KERNELS = re.compile(r"\bflash_fwd")
 
-_counting = threading.local()
-
-
-@contextlib.contextmanager
-def counted():
-    """Yields a dict that holds the counts of the calls made in the block
-    on this thread (empty where none was made)."""
-    outer = getattr(_counting, "counts", None)
-    _counting.counts = counts = {}
-    try:
-        yield counts
-    finally:
-        _counting.counts = outer
-
-
 def _count(sequences: int, tokens: int, head_dim: int) -> None:
-    counts = getattr(_counting, "counts", None)
+    counts = open_counts()
     if counts is None:
         return
     counts["attn_head_dim"] = head_dim  # one width in every YOLOv12 block
-    counts["attn_calls"] = counts.get("attn_calls", 0) + 1
-    counts["attn_rows"] = counts.get("attn_rows", 0) + sequences * tokens
-    counts["attn_scores"] = counts.get("attn_scores", 0) + sequences * tokens * tokens
+    add_counts(attn_calls=1, attn_rows=sequences * tokens,
+               attn_scores=sequences * tokens * tokens)
 
 
 def area_attention(qkv: torch.Tensor, heads: int, area: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -249,15 +249,17 @@ class Rows:
         needs = [conv_rows(o, kernel, stride, pad) for o in row_partition(h_out, self.shards.size)]
         return self.shards.gather_rows(x, self.height, needs, fill)
 
-    def conv2d(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    def conv2d(self, conv: nn.Conv2d, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
         """``conv(x)`` on this rank's rows of the output level (a 1x1
-        stride-1 conv reads only its own rows, and exchanges none)."""
+        stride-1 conv reads only its own rows, and exchanges none); with
+        ``bias=False`` without the conv's bias."""
         (k, kw), (t, tw), (p, pw) = conv.kernel_size, conv.stride, conv.padding
         xe = x
         if (k, t) != (1, 1):
             h_out = (self.height + 2 * p - k) // t + 1
             xe = self._gather_for(x, h_out, k, t, p, 0.0)
-        return _min_rows(lambda z: F.conv2d(z, conv.weight, conv.bias, (t, tw), (0, pw),
+        b = conv.bias if bias else None
+        return _min_rows(lambda z: F.conv2d(z, conv.weight, b, (t, tw), (0, pw),
                                             conv.dilation, conv.groups), xe, k)
 
     def max_pool(self, x: torch.Tensor, window: int) -> torch.Tensor:

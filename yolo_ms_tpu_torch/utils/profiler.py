@@ -4,11 +4,8 @@
   memory. The serving path opens ``serve/predict_batch`` (``images``) ->
   ``serve/upload`` (``bytes``), ``serve/infer`` -> ``serve/normalize``,
   ``serve/model`` (``replayed``: 1 where ``infer/graphs.py`` replayed
-  the forward from a CUDA graph, else 0; for a model with attention,
-  YOLOv12, also ``attn_calls``, ``attn_rows``, ``attn_scores`` and
-  ``attn_head_dim``, the shapes of the forward's attention calls as
-  ``ops/attention.py:counted`` counts them, not FLOPs),
-  ``serve/postprocess``, then
+  the forward from a CUDA graph, else 0; and what the forward's modules
+  count, ``counted()`` below), ``serve/postprocess``, then
   ``serve/download`` (``bytes``); ``Trainer.fit`` opens
   ``fit/wait_batch`` and ``fit/step`` once per step. Spans are on inside
   ``recording()`` and while a ``torch.profiler`` runs; off, ``span``
@@ -23,6 +20,16 @@
   ``clear()`` empties it.
   The recorder calls no profiler API, so no span reaches the profiler's
   events, the device's timeline included.
+- ``counted()``: a block that yields a dict of what the modules of a
+  forward count inside it on this thread (``add_counts``), whether spans
+  are on or not; ``infer/graphs.py`` sets them on ``serve/model``. A
+  forward of deploy structure counts ``conv_biased``, its BN-folded convs
+  (``nn/blocks.py:ConvBnSiLU``), and ``conv_epilogues``, those whose bias
+  and activation ran in the kernel of ``ops/kernels/epilogue.py``; one with
+  attention (YOLOv12) ``attn_calls``, ``attn_rows``, ``attn_scores`` and
+  ``attn_head_dim``, the shapes of its attention calls
+  (``ops/attention.py``), not FLOPs. A block inside another counts for
+  itself alone.
 - ``trace(log_dir)``: a context manager around ``torch.profiler`` with the
   CPU activity, and the CUDA one where a card is present; on exit it writes
   a Chrome trace (``trace.json``, viewable in Perfetto or
@@ -90,6 +97,7 @@ class Span:
 
 
 _NO_SPAN = contextlib.nullcontext()  # reusable: one shared object
+_counting = threading.local()  # .counts: the dict of the innermost open counted() block
 
 
 def spans_on() -> bool:
@@ -113,6 +121,34 @@ def annotate(name: str, **counts) -> None:
     stack = getattr(_open, "stack", None)
     if stack and stack[-1].name == name:
         stack[-1].counts.update(counts)
+
+
+@contextlib.contextmanager
+def counted():
+    """Yields a dict that holds the counts made in the block on this thread
+    (empty where none was made)."""
+    outer = getattr(_counting, "counts", None)
+    _counting.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _counting.counts = outer
+
+
+def open_counts() -> dict | None:
+    """The dict of the innermost ``counted()`` block open on this thread,
+    or None."""
+    return getattr(_counting, "counts", None)
+
+
+def add_counts(**increments: int) -> None:
+    """Add ``increments`` to the innermost open ``counted()`` block's
+    counts; nothing outside one."""
+    counts = getattr(_counting, "counts", None)
+    if counts is None:
+        return
+    for key, n in increments.items():
+        counts[key] = counts.get(key, 0) + n
 
 
 @contextlib.contextmanager
