@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from tests.test_benchmark_cli import REPORT_KEYS
 from yolo_ms_tpu.tools import benchmark as jax_bench
 from yolo_ms_tpu_torch.infer import layouts
@@ -34,15 +35,6 @@ STREAMING_KEYS = {
     "host_decode_img_per_s", "host_decode_cpu_s_per_img", "cores_per_chip_derived",
     "h2d_img_per_s", "h2d_mb_per_s", "device_only_img_per_s", "bound",
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads for torch, beside the JAX runtime's pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_stream_fixture_bytes_equal_jax(tmp_path):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.models.deploy import fold_batchnorm as jax_fold
 from yolo_ms_tpu.nn import blocks as jb
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, to_deploy_structure
@@ -204,12 +205,12 @@ def test_block_train_mode_matches_flax(name):
     )
     variables = _randomize(shapes_tree, rng)
 
-    def jfn(*ins):
-        out, upd = fmod.apply(variables, *ins, train=True, mutable=["batch_stats"], **kw)
+    def jfn(v, *ins):
+        out, upd = fmod.apply(v, *ins, train=True, mutable=["batch_stats"], **kw)
         return out.sum(), (out, upd["batch_stats"])
 
-    (_, (want, new_stats)), jgrads = jax.value_and_grad(
-        jfn, argnums=tuple(range(len(xs))), has_aux=True)(*map(jnp.asarray, xs))
+    grad_fn = jax.value_and_grad(jfn, argnums=tuple(range(1, len(xs) + 1)), has_aux=True)
+    (_, (want, new_stats)), jgrads = jax.jit(grad_fn)(variables, *map(jnp.asarray, xs))
     tmod = torch_ctor()
     tmod.load_state_dict(variables_to_state_dict(variables), strict=True)
     tmod.train()

@@ -10,6 +10,7 @@ import sys
 
 import pytest
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.utils import config as jcfg
 from yolo_ms_tpu_torch.utils import config as tcfg
 

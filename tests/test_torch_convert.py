@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.models.deploy import fold_batchnorm as jax_fold_batchnorm
 from yolo_ms_tpu.models.deploy import is_deploy_variables as jax_is_deploy
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm, is_deploy_variables

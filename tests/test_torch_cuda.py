@@ -18,6 +18,7 @@ import itertools
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu_torch.ops.kernels.select import (
     expected_routes,
     plan,

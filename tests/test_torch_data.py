@@ -12,6 +12,7 @@ the JAX loader's.
 import numpy as np
 import pytest
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from tests.make_fixtures import make_coco_dataset
 from yolo_ms_tpu.data import augment as ja
 from yolo_ms_tpu.data.coco import CocoDetectionDataset as JaxDataset

@@ -10,6 +10,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu_torch.models.registry import build_model
 from yolo_ms_tpu_torch.nn.blocks import ConvBnSiLU
 from yolo_ms_tpu_torch.ops.kernels import epilogue

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu_torch.infer import graphs
 from yolo_ms_tpu_torch.infer.graphs import GraphedForward
 from yolo_ms_tpu_torch.infer.predictor import Predictor

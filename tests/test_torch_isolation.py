@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+from tests.torch_policy import child_env
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
@@ -28,7 +30,7 @@ print(json.dumps({"imported": names, "banned": banned}))
 
 
 def test_port_imports_no_jax_flax_triton_or_jax_package():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {k: v for k, v in child_env().items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT],

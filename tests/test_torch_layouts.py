@@ -25,6 +25,7 @@ import pytest
 import torch
 from torch import nn
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu_torch.data.augment import device_normalize_images
 from yolo_ms_tpu_torch.data.decode import decode_and_resize
 from yolo_ms_tpu_torch.infer import layouts
@@ -49,16 +50,6 @@ NOT_CHANNELS_LAST_INPUTS = {
     "yolov8-n": re.compile(r"(backbone|neck)\.c2f_\d\.m_0\.conv1\.conv"),
     "yolo-ms-xs": None,
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """This file compiles JAX: beside the JAX runtime's thread pool, torch's
-    one-thread-per-core default oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -8,6 +8,7 @@ import os
 
 import pytest
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from tests.make_fixtures import make_coco_dataset
 from yolo_ms_tpu_torch.train.trainer import Trainer
 from yolo_ms_tpu_torch.utils.config import Config

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.models.decode import make_anchors as jax_make_anchors
 from yolo_ms_tpu.ops.iou import bbox_iou as jax_bbox_iou
 from yolo_ms_tpu.ops.iou import ciou as jax_ciou

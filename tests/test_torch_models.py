@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.models.decode import decode_predictions as jax_decode
 from yolo_ms_tpu.models.registry import MODEL_ZOO as JAX_ZOO
 from yolo_ms_tpu.models.registry import build_model as jax_build
@@ -41,6 +42,11 @@ def _golden_variables(sub):
     return out
 
 
+def flax_maps(jmodel, variables, x_nhwc):
+    """flax's eval forward, compiled as one program rather than run op by op."""
+    return jax.jit(functools.partial(jmodel.apply, train=False))(variables, jnp.asarray(x_nhwc))
+
+
 def _port_maps(model, x_nhwc):
     with torch.no_grad():
         raw = model(torch.from_numpy(x_nhwc).permute(0, 3, 1, 2))
@@ -52,7 +58,7 @@ def _port_maps(model, x_nhwc):
 def test_raw_maps_and_decode_match_flax(arch, sub, size):
     variables = _golden_variables(sub)
     x = np.random.default_rng(size).standard_normal((1, size, size, 3)).astype(np.float32)
-    want = jax_build(arch, num_classes=3).apply(variables, jnp.asarray(x), train=False)
+    want = flax_maps(jax_build(arch, num_classes=3), variables, x)
 
     model = build_model(arch, num_classes=3, device="cpu")
     model.load_state_dict(load_npz(os.path.join(GOLDEN, sub, "weights.npz")), strict=True)
@@ -139,7 +145,7 @@ def test_zoo_raw_maps_match_flax(arch):
     x = np.random.default_rng(0).standard_normal((1, 64, 64, 3)).astype(np.float32)
     jmodel = jax_build(arch, num_classes=5)
     variables = _random_variables(jmodel, jnp.asarray(x), np.random.default_rng(1))
-    want = jmodel.apply(variables, jnp.asarray(x), train=False)
+    want = flax_maps(jmodel, variables, x)
     model = build_model(arch, num_classes=5, device="cpu")
     model.load_state_dict(variables_to_state_dict(variables), strict=True)
     for g, w in zip(_port_maps(model, x), want):

@@ -19,22 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.ops.nms import _pairwise_iou_xyxy
 from yolo_ms_tpu.ops.nms import nms_fixed as jax_nms_fixed
 from yolo_ms_tpu.ops.nms import nms_greedy_scan as jax_greedy_scan
 from yolo_ms_tpu_torch.ops.kernels import nms as nms_kernels
 from yolo_ms_tpu_torch.ops.nms import CLASS_OFFSET, nms_fixed
 from yolo_ms_tpu_torch.utils import profiler
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """This file compiles JAX: beside the JAX runtime's thread pool, torch's
-    one-thread-per-core default oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _random(rng, b, n, span=60.0, pad=5):

@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.train import optim as jopt
 from yolo_ms_tpu.utils.config import TrainingConfig as JaxTrainingConfig
 from yolo_ms_tpu_torch.train import optim as topt

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from tests.make_fixtures import make_coco_dataset
 from tests.torch_dp_worker import lines, model_grads, run_ranks
 from yolo_ms_tpu.data.coco import CocoDetectionDataset as JaxDataset

@@ -35,6 +35,7 @@ import time
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from tests.make_fixtures import make_coco_dataset
 from tests.torch_dp_worker import finish, lines, run_ranks, start_ranks
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.ops.nms import batched_nms as jax_batched_nms
 from yolo_ms_tpu.ops.nms import nms_fixed as jax_nms_fixed
 from yolo_ms_tpu.ops.postprocess import fused_postprocess as jax_fused
@@ -33,16 +34,6 @@ from yolo_ms_tpu_torch.utils import profiler
 NC, REG_MAX = 80, 16
 NB = 4 * REG_MAX
 SHAPES = [(8, 8), (4, 4), (2, 8)]  # as tests/test_pallas_select.py
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """This file compiles JAX: beside the JAX runtime's thread pool, torch's
-    one-thread-per-core default oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _maps(seed, nc=NC, scale=1.5):

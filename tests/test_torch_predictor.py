@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.data import augment as jax_augment
 from yolo_ms_tpu.data import decode as jax_decode
 from yolo_ms_tpu.infer import predictor as jax_predictor

@@ -30,6 +30,8 @@ import types
 import pytest
 import torch
 
+from tests.torch_policy import child_env
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _WORKER = r"""
@@ -38,7 +40,6 @@ import hashlib, json, os, signal, sys, time
 # of importing TensorFlow, which takes ~20 s where it is installed
 sys.modules["tensorflow"] = None
 import torch
-torch.set_num_threads(2)
 from yolo_ms_tpu_torch.train.trainer import Trainer
 from yolo_ms_tpu_torch.utils.config import Config
 
@@ -99,7 +100,7 @@ sys.exit(rc)
 
 
 def _env():
-    env = dict(os.environ)
+    env = child_env()
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env["YOLO_MS_PREEMPT_GRACE_S"] = "60"
     return env

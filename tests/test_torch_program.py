@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_policy import child_env
 from yolo_ms_tpu_torch.data.decode import decode_and_resize
 from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.infer.program import load_program
@@ -33,16 +34,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 CASES = {"n": "trained", "yolo-ms-xs": "trained_yolo-ms-xs"}
 TOL = dict(rtol=1e-5, atol=1e-4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """This file compiles JAX: beside the JAX runtime's thread pool, torch's
-    one-thread-per-core default oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _weights(arch):
@@ -101,7 +92,6 @@ CHILD = r"""
 import json, sys
 import numpy as np
 import torch
-torch.set_num_threads(2)
 from yolo_ms_tpu_torch.infer.program import load_program
 outs = {}
 for arch, (path, image) in json.loads(sys.argv[1]).items():
@@ -123,7 +113,7 @@ def test_program_served_without_model_code(programs, tmp_path):
     for arch in CASES:
         np.save(tmp_path / f"{arch}.npy", _image(arch))
         args[arch] = (programs[arch], str(tmp_path / f"{arch}.npy"))
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {k: v for k, v in child_env().items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, json.dumps(args), str(tmp_path / "out.npz")],

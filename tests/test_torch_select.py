@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu.ops.pallas.select import select_scale
 from yolo_ms_tpu_torch.ops.kernels.select import select, select_plain, select_scales
 

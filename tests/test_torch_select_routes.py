@@ -9,6 +9,7 @@ the card, from their class count, dtype, strides and base alignment, and
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu_torch.ops.kernels.select import expected_routes, plan_fits
 
 REG_MAX = 16

@@ -12,6 +12,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from yolo_ms_tpu_torch.infer.predictor import Predictor
 from yolo_ms_tpu_torch.ops.nms import nms_fixed
 from yolo_ms_tpu_torch.utils import profiler
@@ -39,16 +40,6 @@ def pred():
 @pytest.fixture()
 def images():
     return np.random.default_rng(0).integers(0, 256, (B, HW, HW, 3), dtype=np.uint8)
-
-
-@pytest.fixture()
-def two_threads():
-    """Two intra-op threads for a full-width network: under a parallel test
-    run the default of one per core oversubscribes the host."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -138,7 +129,7 @@ def test_annotate_sets_counts_on_the_innermost_span_of_its_name():
     assert counts == {"a": {"n": 0}, "b": {"replayed": 1}}
 
 
-def test_the_model_span_counts_yolov12s_attention(two_threads):
+def test_the_model_span_counts_yolov12s_attention():
     """A small yolov12-l (published widths, 96 px): ``serve/model`` carries
     the shapes of the forward's attention calls as the float32 reference's
     ``AAttn`` calls give them (traced on the meta device), beside its

@@ -33,6 +33,7 @@ at most 4, images of at most 128 px); no JAX train step is compiled here.
 - the three ``ValueError``s of the ``Trainer`` in one process.
 """
 
+import functools
 import os
 
 import jax
@@ -42,11 +43,11 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from tests.make_fixtures import make_coco_dataset
-from tests.test_torch_models import _random_variables
+from tests.test_torch_models import _random_variables, flax_maps
 from tests.torch_dp_worker import finish, lines, spatial_step_setup, start_ranks
 from yolo_ms_tpu.models.registry import build_model as jax_build
-from yolo_ms_tpu.models.registry import init_model as jax_init
 from yolo_ms_tpu.ops.postprocess import fused_postprocess as jax_fused
 from yolo_ms_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from yolo_ms_tpu.parallel.mesh import replicated_sharding as jax_replicated
@@ -59,15 +60,6 @@ from yolo_ms_tpu_torch.utils.config import Config
 from yolo_ms_tpu_torch.utils.convert import variables_to_state_dict
 
 TERMS = ("loss_box", "loss_cls", "loss_dfl", "total_loss")
-
-
-@pytest.fixture(autouse=True)
-def _torch_threads():
-    """Two torch threads beside the JAX runtime's pool (as the trainer tests)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _rows(x: torch.Tensor, lo: int, hi: int, fill: float) -> torch.Tensor:
@@ -151,7 +143,9 @@ def test_height_sharded_serving_matches_jax(tmp_path):
     split over 4 ranks."""
     nc, post = 8, dict(conf_thresh=1e-6, pre_nms_topk=64, max_det=16)
     jmodel = jax_build("n", num_classes=nc)
-    variables = jax_init(jmodel, jax.random.PRNGKey(0), (128, 128))
+    # init_model's draw, compiled as one program rather than run op by op
+    variables = jax.jit(functools.partial(jmodel.init, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3), jmodel.dtype))
     x = np.random.default_rng(0).standard_normal((1, 128, 128, 3)).astype(np.float32)
     procs = _serve_ranks(tmp_path, "n", nc, variables_to_state_dict(variables), x, 4, post)
 
@@ -187,7 +181,7 @@ def test_height_sharded_ms_se_maps_match_jax(tmp_path):
     variables = _random_variables(jmodel, jnp.asarray(x), np.random.default_rng(4))
     procs = _serve_ranks(tmp_path, "yolo-ms-xs-se", 4, variables_to_state_dict(variables), x, 2,
                          dict(conf_thresh=1e-6, pre_nms_topk=64, max_det=16))
-    want = jmodel.apply(variables, jnp.asarray(x), train=False)
+    want = flax_maps(jmodel, variables, x)
     ranks = _rank_results(procs, tmp_path, "spatial_serve", 2)
     for res in ranks:
         assert len(res["maps"]) == len(want) == 3

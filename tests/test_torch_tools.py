@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_policy import NullLogger
 from yolo_ms_tpu_torch.models.deploy import fold_batchnorm
 from yolo_ms_tpu_torch.models.registry import build_model
 from yolo_ms_tpu_torch.utils.convert import load_npz
@@ -28,37 +29,11 @@ V8_FIXTURE = os.path.join(GOLDEN, "trained", "fixture_000.png")
 V8_DETECTIONS = os.path.join(GOLDEN, "trained", "fixture_000_detections.json")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads for torch: beside the JAX runtime's own thread
-    pool in a test worker, torch's default of one OpenMP thread per core
-    oversubscribes the cores and the file runs several times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
-class _NullLogger:
-    """Stands in for the trainer's TensorBoard writer, whose first use
-    imports TensorFlow where it is installed (~20 s); no test here reads
-    the scalars."""
-
-    def __init__(self, log_dir):
-        pass
-
-    def scalar(self, tag, value, step):
-        pass
-
-    def close(self):
-        pass
-
-
 @pytest.fixture
 def no_tensorboard(monkeypatch):
     from yolo_ms_tpu_torch.train import trainer
 
-    monkeypatch.setattr(trainer, "MetricLogger", _NullLogger)
+    monkeypatch.setattr(trainer, "MetricLogger", NullLogger)
 
 
 # ----------------------------------------------------------------------------

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from tests.make_fixtures import make_coco_dataset
+from tests.torch_policy import NullLogger
 from yolo_ms_tpu.eval.coco_map import MeanAveragePrecision as JaxMAP
 from yolo_ms_tpu.models.registry import build_model as jax_build_model
 from yolo_ms_tpu.train.loss import DetectionLoss as JaxLoss
@@ -46,6 +47,7 @@ from yolo_ms_tpu.train.trainer import make_train_step as jax_make_train_step
 from yolo_ms_tpu.utils.config import TrainingConfig as JaxTrainingConfig
 from yolo_ms_tpu_torch.eval.coco_map import MeanAveragePrecision
 from yolo_ms_tpu_torch.models.registry import build_model, init_model
+from yolo_ms_tpu_torch.train import trainer as trainer_mod
 from yolo_ms_tpu_torch.train.loss import DetectionLoss
 from yolo_ms_tpu_torch.train.optim import build_optimizer
 from yolo_ms_tpu_torch.train.trainer import Trainer, TrainState, make_train_step
@@ -62,17 +64,6 @@ OPT = dict(batch_size=BATCH, epochs=2, optimizer="sgd", learning_rate=0.02,
            sgd_momentum=0.937, sgd_nesterov=True, weight_decay=5e-4, grad_clip_norm=10.0,
            ema_decay=EMA_DECAY)
 SCHED = dict(type="cosine", warmup_steps=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads for torch: beside the JAX runtime's own thread
-    pool in this process, torch's default of one OpenMP thread per core
-    oversubscribes the cores and the file runs several times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_initial_model():
@@ -317,7 +308,8 @@ def test_init_matches_flax_init():
 
     head = DetectHead(version="n", num_classes=NC)
     feats = [jnp.zeros((1, IMG // s, IMG // s, c)) for s, c in zip((8, 16, 32), (64, 128, 256))]
-    head_vars = jax.device_get(head.init(jax.random.PRNGKey(0), feats, train=False))
+    head_vars = jax.device_get(
+        jax.jit(functools.partial(head.init, train=False))(jax.random.PRNGKey(0), feats))
     for path, a in flat:
         keys = [k.key for k in path]
         if keys[-1] == "bias" and keys[-2] == "pred":
@@ -338,9 +330,13 @@ def test_init_matches_flax_init():
 
 @pytest.fixture(scope="module")
 def coco(tmp_path_factory):
+    """The data set of the Trainer tests, and their Trainers' metric logger
+    a ``NullLogger``: no test here reads the scalars."""
     root = str(tmp_path_factory.mktemp("trainer"))
     images, ann = make_coco_dataset(root, num_images=8, num_classes=2, img_w=96, img_h=96)
-    return root, images, ann
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trainer_mod, "MetricLogger", NullLogger)
+        yield root, images, ann
 
 
 def _cfg(coco, name, **training):

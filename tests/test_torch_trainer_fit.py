@@ -26,10 +26,11 @@ import torch
 
 from tests.make_fixtures import make_coco_dataset
 from tests.test_torch_cuda import assert_adam_params_close
-from tests.test_torch_trainer import _two_torch_threads  # noqa: F401 - autouse fixture
+from tests.torch_policy import NullLogger
 from yolo_ms_tpu.parallel.mesh import make_mesh
 from yolo_ms_tpu.train import trainer as jax_trainer_mod
 from yolo_ms_tpu.utils.config import Config as JaxConfig
+from yolo_ms_tpu_torch.train import trainer as trainer_mod
 from yolo_ms_tpu_torch.train.trainer import Trainer
 from yolo_ms_tpu_torch.utils.config import Config
 from yolo_ms_tpu_torch.utils.convert import (
@@ -78,7 +79,14 @@ def _host(tree):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("fit"))
+    with pytest.MonkeyPatch.context() as mp:
+        # no test reads the scalars: neither Trainer imports TensorFlow
+        mp.setattr(trainer_mod, "MetricLogger", NullLogger)
+        mp.setattr(jax_trainer_mod, "MetricLogger", NullLogger)
+        return _runs(str(tmp_path_factory.mktemp("fit")), mp)
+
+
+def _runs(root, mp):
     images, ann = make_coco_dataset(root, num_images=8, num_classes=3, img_w=320, img_h=256,
                                     seed=1)
 
@@ -104,23 +112,25 @@ def runs(tmp_path_factory):
     port.fit()
     port_map = port._last_val_result
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_trainer_mod, "make_mesh", lambda: make_mesh(jax.devices()[:1]))
-        mp.setattr(jax_trainer_mod, "init_model", lambda model, rng, size: initial)
-        jt = jax_trainer_mod.Trainer(
-            JaxConfig.from_dict(_config(root, images, ann, "jax")), verbose=False)
-        jax_rec = []
-        jinner = jt._train_step
+    mp.setattr(jax_trainer_mod, "make_mesh", lambda: make_mesh(jax.devices()[:1]))
+    mp.setattr(jax_trainer_mod, "init_model", lambda model, rng, size: initial)
+    jt = jax_trainer_mod.Trainer(
+        JaxConfig.from_dict(_config(root, images, ann, "jax")), verbose=False)
+    # the state where the step's outputs live, so that the second step runs
+    # the first one's executable instead of compiling another
+    jt.state = jax.device_put(jt.state, jt.repl)
+    jax_rec = []
+    jinner = jt._train_step
 
-        def jax_step(state, batch):
-            new, m = jinner(state, batch)
-            snap = _host(new) if len(jax_rec) + 1 in SNAPSHOT_STEPS else None
-            jax_rec.append(({k: float(v) for k, v in _host(m).items()}, snap,
-                            _host(_jax_adam_mu(new))))
-            return new, m
+    def jax_step(state, batch):
+        new, m = jinner(state, batch)
+        snap = _host(new) if len(jax_rec) + 1 in SNAPSHOT_STEPS else None
+        jax_rec.append(({k: float(v) for k, v in _host(m).items()}, snap,
+                        _host(_jax_adam_mu(new))))
+        return new, m
 
-        jt._train_step = jax_step
-        jt.fit()
+    jt._train_step = jax_step
+    jt.fit()
     names = [n for n, _ in port.state.model.named_parameters()]
     return port_rec, port_map, jax_rec, jt._last_val_result, names
 

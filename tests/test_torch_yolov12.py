@@ -14,6 +14,7 @@ at 160 px a run is not a whole number of rows.
 import pytest
 import torch
 
+import tests.torch_policy  # noqa: F401 - the port's thread policy
 from portbench import run
 from portbench.reference.model import Detector, forward_flops
 from portbench.weights import seeded_state_dict
@@ -31,17 +32,6 @@ def _cfg(img=160):
     cfg = run.load_json("configs", "yolov12-l.json")
     cfg.update(image_size=[img, img])
     return cfg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    """Two intra-op threads, set before the module's other fixtures draw
-    and run the full-width networks: under a parallel test run the default
-    of one per core oversubscribes the host."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

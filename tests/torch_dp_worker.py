@@ -6,7 +6,9 @@ output. ``world=1`` runs one process with no group: the one-process
 reference on the same global batch.
 
 Each mode reads its inputs from, and writes its results to, a directory the
-test names; no mode imports JAX.
+test names; no mode imports JAX. Every rank takes its thread environment
+from ``tests/torch_policy.py``, the one source of the thread count of every
+process that a port test starts.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import socket
 import subprocess
 import sys
 import time
+
+from tests.torch_policy import child_env
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,7 +37,7 @@ def start_ranks(mode: str, world: int, *args: str, env: dict | None = None) -> l
     port = _free_port()
     procs = []
     for rank in range(world):
-        e = dict(os.environ)
+        e = child_env()
         for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
             e.pop(k, None)
         if world > 1:
@@ -84,11 +88,8 @@ def _setup():
     # the trainer's TensorBoard writer then uses tensorboard's own stub
     # instead of importing TensorFlow (~20 s where it is installed)
     sys.modules["tensorflow"] = None
-    import torch
-
     from yolo_ms_tpu_torch.parallel.distributed import maybe_initialize_distributed
 
-    torch.set_num_threads(2)
     maybe_initialize_distributed(device="cpu")
 
 
